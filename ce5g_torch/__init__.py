@@ -1,0 +1,41 @@
+"""ce5g_torch — the PyTorch/CUDA port of ``ce5g_tpu``.
+
+Simulates 3GPP EPA/EVA/ETU Jakes-fading MIMO-OFDM frames and estimates
+the channel with LS, diagonal MMSE and the full Wiener MMSE, on an NVIDIA
+H100, with hand-written CUDA kernels (``csrc/``) where the JAX package has
+Pallas kernels. ``ce5g_tpu`` stays the reference the port is tested
+against; this package imports neither JAX nor ``ce5g_tpu``.
+
+Entry points take ``device=`` (default ``"cuda"``) and raise without a
+card unless the caller passes ``device="cpu"``.
+"""
+
+from .config import (
+    ChannelConfig,
+    DatasetConfig,
+    ExperimentConfig,
+    MIMOConfig,
+    ModelConfig,
+    OFDMConfig,
+    PilotConfig,
+    SimulationConfig,
+    TrainingConfig,
+    config_from_dict,
+    load_config,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ChannelConfig",
+    "DatasetConfig",
+    "ExperimentConfig",
+    "MIMOConfig",
+    "ModelConfig",
+    "OFDMConfig",
+    "PilotConfig",
+    "SimulationConfig",
+    "TrainingConfig",
+    "config_from_dict",
+    "load_config",
+]

@@ -80,7 +80,8 @@ def estimate_batch(
         frames: batched :class:`Frame` (moved to ``device``).
         estimator: 'ls' | 'mmse' (reference-parity diagonal) | 'mmse_full'
             (per-subcarrier Wiener with correlation priors).
-        method: interpolation for 'ls'/'mmse' ('nearest' | 'linear').
+        method: interpolation for 'ls'/'mmse': 'nearest' or 'linear' (grid
+            form, with the frames' pilot mask) or 'cubic' (slot form).
         time_rank: mmse_full time-prior rank — "auto" (sized from the max
             configured Doppler via :func:`auto_time_rank`), an int, or None
             for exact full rank.
@@ -93,15 +94,16 @@ def estimate_batch(
     if table is None:
         table = table_for(cfg)
     num_tx = cfg.mimo.num_tx
+    grid_shape = (cfg.ofdm.num_symbols, cfg.ofdm.num_used_subcarriers)
     tx_grid = frames.tx_symbols[:, :, 0, :]  # common grid (reference parity)
+    slots = (frames.pilot_positions, frames.pilot_valid, grid_shape, num_tx)
 
     if estimator == "ls":
-        return ls_estimate(frames.rx_symbols, tx_grid, frames.pilot_mask, num_tx, method)
+        return ls_estimate(frames.rx_symbols, tx_grid, *slots, method,
+                           pilot_mask=frames.pilot_mask)
     if estimator == "mmse":
-        return mmse_diag_estimate(
-            frames.rx_symbols, tx_grid, frames.pilot_mask, num_tx,
-            frames.params.snr_db, method,
-        )
+        return mmse_diag_estimate(frames.rx_symbols, tx_grid, *slots, frames.params.snr_db,
+                                  method, pilot_mask=frames.pilot_mask)
     if estimator == "mmse_full_est":
         raise NotImplementedError(
             "estimator='mmse_full_est' needs the blind prior estimator "

@@ -1,12 +1,13 @@
 """MMSE channel estimation, batched — two modes.
 
-Port of ``ce5g_tpu.estimators.mmse`` (grid forms).
+Port of ``ce5g_tpu.estimators.mmse``.
 
 1. ``mmse_diag_estimate`` — behavioural parity with the reference's
    diagonal MMSE (src/baseline_estimators.py:155-196). With a
    scaled-identity covariance the reference's dense P×P Wiener product is
-   exactly the scalar shrinkage p/(p+σ²)·h_ls, computed here on the masked
-   LS grid, then interpolated like LS.
+   exactly the scalar shrinkage p/(p+σ²)·h_ls, computed on the masked LS
+   grid (grid form) or at the pilot slots (slot form), then interpolated
+   like LS.
 
 2. ``mmse_full_estimate`` — the per-subcarrier Wiener filter with the
    simulator's exact second-order statistics,
@@ -27,15 +28,15 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.hpd_solve import hpd_solve
 from ..utils.complexify import packed_complex_matmul
-from .interpolate import interpolate_grid
-from .ls import masked_ls_grid
+from .interpolate import interpolate, interpolate_grid
+from .ls import ls_at_pilots, masked_ls_grid
 
 
 def bessel_j0(x: torch.Tensor) -> torch.Tensor:
@@ -78,25 +79,52 @@ def _legendre_basis(s: int, m: int, device) -> torch.Tensor:
     return torch.as_tensor(_legendre_basis_np(s, m), device=device)
 
 
+def mmse_diag_at_pilots(h_ls, valid, snr_db):
+    """Scalar-Wiener shrinkage ≡ reference diagonal MMSE
+    (baseline_estimators.py:177-194): p = mean|h_ls|² over the valid
+    slots, σ² = 1/SNR_lin, h = p/(p+σ²)·h_ls.
+
+    Args:
+        h_ls: (B, R, P) complex; valid: (B, P); snr_db: (B,).
+    """
+    v = valid.to(torch.float32)[:, None]
+    n = v.sum(dim=-1, keepdim=True).clamp(min=1.0)
+    p = (h_ls.abs() ** 2 * v).sum(dim=-1, keepdim=True) / n
+    snr = torch.as_tensor(snr_db, dtype=torch.float32, device=h_ls.device)
+    sigma2 = (10.0 ** (-snr / 10.0))[:, None, None]
+    return h_ls * (p / (p + sigma2))
+
+
 def mmse_diag_estimate(
-    rx_symbols, tx_grid, pilot_mask, num_tx: int, snr_db, method: str = "linear"
+    rx_symbols, tx_grid, positions, valid, grid_shape: Tuple[int, int], num_tx: int,
+    snr_db, method: str = "linear", pilot_mask=None,
 ):
     """Reference-parity MMSE: LS → scalar shrink → interpolate
     (baseline_estimators.py:232-270).
 
     Args:
-        rx_symbols: (B, S, R, K); tx_grid, pilot_mask: (B, S, K); snr_db: (B,).
+        rx_symbols: (B, S, R, K); tx_grid: (B, S, K); positions: (B, P, 2);
+            valid: (B, P); grid_shape: (S, K); snr_db: (B,).
+        pilot_mask: optional (B, S, K). With it, and 'nearest' or 'linear',
+            the shrink and the interpolation run in grid form; otherwise in
+            slot form (see ``ls_estimate``).
 
     Returns:
         (B, S, R, T, K) complex64.
     """
-    m = pilot_mask.to(torch.float32)
-    g = masked_ls_grid(rx_symbols, tx_grid, m)  # (B, R, S, K)
-    n = m.sum(dim=(-2, -1)).clamp(min=1.0)[:, None, None, None]
-    p = (g.abs() ** 2).sum(dim=(-2, -1), keepdim=True) / n  # per rx antenna
-    snr = torch.as_tensor(snr_db, dtype=torch.float32, device=g.device)
-    sigma2 = (10.0 ** (-snr / 10.0))[:, None, None, None]
-    h_full = interpolate_grid(g * (p / (p + sigma2)), m, method).transpose(1, 2)
+    if pilot_mask is not None and method in ("nearest", "linear"):
+        m = pilot_mask.to(torch.float32)
+        g = masked_ls_grid(rx_symbols, tx_grid, m)  # (B, R, S, K)
+        n = m.sum(dim=(-2, -1)).clamp(min=1.0)[:, None, None, None]
+        p = (g.abs() ** 2).sum(dim=(-2, -1), keepdim=True) / n  # per rx antenna
+        snr = torch.as_tensor(snr_db, dtype=torch.float32, device=g.device)
+        sigma2 = (10.0 ** (-snr / 10.0))[:, None, None, None]
+        h_full = interpolate_grid(g * (p / (p + sigma2)), m, method)
+    else:
+        h_ls = ls_at_pilots(rx_symbols.transpose(1, 2), tx_grid, positions, valid)
+        h_mmse = mmse_diag_at_pilots(h_ls, valid, snr_db)
+        h_full = interpolate(h_mmse, positions, valid, grid_shape, method)
+    h_full = h_full.transpose(1, 2)  # (B, S, R, K)
     b, s, r, k = h_full.shape
     return h_full[:, :, :, None, :].expand(b, s, r, num_tx, k)
 

@@ -64,6 +64,8 @@ def small_frames(small_cfg):
         ("ls", "linear", 1e-4),
         ("mmse", "nearest", 1e-4),
         ("mmse", "linear", 1e-4),
+        ("ls", "cubic", 1e-4),  # slot form
+        ("mmse", "cubic", 1e-4),
         ("mmse_full", "linear", 1e-3),  # Woodbury cancellation, see module doc
     ],
 )
@@ -130,6 +132,71 @@ def test_whole_slice_matches_jax(cfg):
         assert abs(got_db - ref_db) < 0.01, (estimator, got_db, ref_db)
 
 
+@pytest.fixture(scope="module")
+def full_frames(cfg):
+    """Four JAX frames at the default numerology (2×2, 14 × 599), EVA at
+    the parity study's 50 Hz, with mixed SNR and density up to 20%."""
+    jcfg = dataclasses.replace(
+        cfg, pilots=dataclasses.replace(cfg.pilots, max_density=0.25)
+    )
+    params = jax_params([1, 1, 0, 2], [50.0] * 4, [5.0, 15.0, 25.0, 15.0],
+                        [0.10, 0.20, 0.05, 0.10])
+    jf = _jax_frames(jcfg, params, seed=9)
+    return jcfg, jf, frame_from_numpy(jax.tree.map(np.asarray, jf), device="cpu")
+
+
+@pytest.mark.parametrize("estimator", ["ls", "mmse"])
+def test_cubic_full_numerology_matches_jax(full_frames, estimator):
+    jcfg, jf, tf = full_frames
+    ref = _j_estimate(jcfg, jf, estimator, "cubic")
+    got = estimate_batch(tf, cfg=port_cfg(jcfg), estimator=estimator, method="cubic",
+                         device="cpu").numpy()
+    h = np.asarray(jf.channel)
+    rms = np.sqrt(np.mean(np.abs(h) ** 2, axis=(1, 2, 3, 4)))
+    err = np.max(np.abs(got - ref), axis=(1, 2, 3, 4))
+    assert np.all(err <= 1e-4 * rms), err / rms
+    assert abs(_db(h, got) - _db(h, ref)) < 0.01
+
+
+@pytest.mark.parametrize("method", ["nearest", "linear"])
+@pytest.mark.parametrize("estimator", ["ls", "mmse"])
+def test_slot_branch_without_mask_matches_jax(small_cfg, small_frames, estimator, method):
+    """ls_estimate / mmse_diag_estimate with no pilot mask take the slot
+    form for every method, as ce5g_tpu's do (ls.py:81-83, mmse.py:140-143)."""
+    from ce5g_tpu.estimators.ls import ls_estimate as j_ls
+    from ce5g_tpu.estimators.mmse import mmse_diag_estimate as j_mmse
+    from ce5g_torch.estimators import ls_estimate, mmse_diag_estimate
+
+    jf, tf = small_frames
+    grid = (small_cfg.ofdm.num_symbols, small_cfg.ofdm.num_used_subcarriers)
+    num_tx = small_cfg.mimo.num_tx
+
+    def one(rx, tx, pos, valid, snr):
+        if estimator == "ls":
+            return j_ls(rx, tx[:, 0, :], pos, valid, grid, num_tx, method)
+        return j_mmse(rx, tx[:, 0, :], pos, valid, grid, num_tx, snr, method)
+
+    ref = np.asarray(jax.jit(jax.vmap(one))(
+        jf.rx_symbols, jf.tx_symbols, jf.pilot_positions, jf.pilot_valid, jf.params.snr_db
+    ))
+    args = (tf.rx_symbols, tf.tx_symbols[:, :, 0, :], tf.pilot_positions, tf.pilot_valid,
+            grid, num_tx)
+    if estimator == "ls":
+        got = ls_estimate(*args, method)
+    else:
+        got = mmse_diag_estimate(*args, tf.params.snr_db, method)
+    h = np.asarray(jf.channel)
+    rms = np.sqrt(np.mean(np.abs(h) ** 2, axis=(1, 2, 3, 4)))
+    err = np.max(np.abs(got.numpy() - ref), axis=(1, 2, 3, 4))
+    assert np.all(err <= 1e-4 * rms), err / rms
+    # with the mask the grid form gives the same estimate (nearest exactly;
+    # linear up to the row-scan's rare same-row third neighbour)
+    masked = (ls_estimate(*args, method, pilot_mask=tf.pilot_mask) if estimator == "ls"
+              else mmse_diag_estimate(*args, tf.params.snr_db, method,
+                                      pilot_mask=tf.pilot_mask))
+    assert abs(_db(h, masked.numpy()) - _db(h, got.numpy())) < 0.05
+
+
 def test_auto_time_rank_and_bessel_match_jax(cfg):
     from ce5g_tpu import ChannelConfig
     from ce5g_tpu.estimators.api import auto_time_rank as j_rank
@@ -174,7 +241,10 @@ def test_estimator_rules(small_cfg, small_frames):
     cfg = port_cfg(small_cfg)
     with pytest.raises(NotImplementedError, match="later slice"):
         estimate_batch(tf, cfg=cfg, estimator="mmse_full_est", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        estimate_batch(tf, cfg=cfg, estimator="ls", method="cubic", device="cpu")
+    # cubic takes the slot form (no longer a later slice)
+    h = estimate_batch(tf, cfg=cfg, estimator="ls", method="cubic", device="cpu")
+    assert tuple(h.shape) == tuple(tf.channel.shape) and bool(torch.isfinite(h).all())
+    with pytest.raises(ValueError, match="Unknown interpolation method"):
+        estimate_batch(tf, cfg=cfg, estimator="ls", method="spline", device="cpu")
     with pytest.raises(ValueError):
         estimate_batch(tf, cfg=cfg, estimator="zf", device="cpu")

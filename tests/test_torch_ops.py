@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ce5g_torch.ops import hpd_solve as hpd_mod
+from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as interp_mod
 
 
@@ -57,13 +58,17 @@ def test_hpd_solve_residual_and_nan():
 
 
 def test_cpu_tensors_take_the_plain_version():
-    before = (hpd_mod.launches, interp_mod.launches)
+    before = (hpd_mod.launches, interp_mod.launches, slot_mod.launches)
     gram, rhs = _hpd_problem(5, 2, 6, 2)
     hpd_mod.hpd_solve(torch.from_numpy(gram), torch.from_numpy(rhs))
     interp_mod.interpolate_grid_fused(
         torch.zeros(1, 2, 6, 39, dtype=torch.complex64), torch.zeros(1, 6, 39), "linear"
     )
-    assert (hpd_mod.launches, interp_mod.launches) == before
+    slot_mod.interpolate_slots(
+        torch.zeros(1, 2, 23, dtype=torch.complex64), torch.zeros(1, 23, 2, dtype=torch.int32),
+        torch.zeros(1, 23), (6, 39), "cubic",
+    )
+    assert (hpd_mod.launches, interp_mod.launches, slot_mod.launches) == before
 
 
 def _interp_inputs(b, r, s, k, density=0.10, seed=0):
@@ -111,10 +116,122 @@ def test_interpolate_grid_empty_mask_and_rules():
     v = torch.zeros(2, 3, 14, 599, dtype=torch.complex64)
     for method in ("nearest", "linear"):
         assert torch.all(interpolate_grid(v, mask, method) == 0)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # as in ce5g_tpu, the grid form takes nearest/linear with a mask only;
+    # cubic and mask-free calls take the slot form (interpolate)
+    with pytest.raises(ValueError, match="nearest/linear"):
         interpolate_grid(v, mask, "cubic")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="pilot mask"):
         interpolate_grid(v, None, "linear")
+
+
+def _slot_inputs(frames, r, s, k, density, max_density=0.25, seed=0):
+    """Pilot slots of ce5g_tpu's scattered patterns (one per frame) and
+    random complex values, zero at invalid slots, as numpy arrays."""
+    from ce5g_tpu.physics import make_pattern
+
+    keys = jax.random.split(jax.random.key(seed + int(density * 997)), frames)
+    pats = [make_pattern(key, s, k, density, "scattered", max_density=max_density)
+            for key in keys]
+    pos = np.stack([np.asarray(p.positions) for p in pats])
+    valid = np.stack([np.asarray(p.valid) for p in pats])
+    rng = np.random.default_rng(seed)
+    shape = (frames, r, pos.shape[1])
+    vals = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * valid[:, None]
+    return vals.astype(np.complex64), pos, valid
+
+
+def _slot_interp(vals, pos, valid, grid, method):
+    from ce5g_torch.estimators.interpolate import interpolate
+
+    return interpolate(torch.from_numpy(vals), torch.from_numpy(pos),
+                       torch.from_numpy(valid), grid, method).numpy()
+
+
+_j_slot_xla = jax.jit(
+    lambda v, p, ok, grid, method: __import__(
+        "ce5g_tpu.estimators.interpolate", fromlist=["interpolate"]
+    ).interpolate(v, p, ok, grid, method, impl="xla"),
+    static_argnums=(3, 4),
+)
+
+
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+@pytest.mark.parametrize("density", [0.02, 0.10, 0.15, 0.20])
+def test_interpolate_slots_matches_xla(density, method):
+    """The plain version against the JAX package's exact definition, the
+    XLA branch of interpolate (128 sorted candidates per column), two
+    frames with their own pilots, up to the 20% cell of the parity study."""
+    s, k = 14, 599
+    vals, pos, valid = _slot_inputs(2, 2, s, k, density)
+    out = _slot_interp(vals, pos, valid, (s, k), method)
+    assert out.shape == (2, 2, s, k) and out.dtype == np.complex64
+    for f in range(2):
+        ref = np.asarray(_j_slot_xla(vals[f], pos[f], valid[f], (s, k), method))
+        np.testing.assert_allclose(out[f], ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+@pytest.mark.parametrize("density", [0.02, 0.10, 0.15])
+def test_interpolate_slots_matches_pallas(density, method):
+    """Against the TPU kernel itself (interpret mode) under its own
+    contract (tests/test_interp_pallas.py): its 384-pilot tile window is
+    exact only up to ≈15% density."""
+    from ce5g_tpu.ops.interp_pallas import interpolate_pallas
+
+    s, k = 14, 599
+    vals, pos, valid = _slot_inputs(1, 2, s, k, density, max_density=0.15)
+    got = _slot_interp(vals, pos, valid, (s, k), method)[0]
+    want = np.asarray(interpolate_pallas(vals[0], pos[0], valid[0], (s, k), method,
+                                         interpret=True))
+    if method == "cubic":
+        err = np.mean(np.abs(got - want) ** 2) / np.mean(np.abs(want) ** 2)
+        assert err < 0.02, err
+    else:
+        diff = np.abs(got - want)
+        assert np.mean(diff < 1e-3) > 0.99
+        assert np.mean(diff**2) / np.mean(np.abs(want) ** 2) < 1e-3
+
+
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+def test_interpolate_slots_small_grid_and_empty_frame(method):
+    """A (6, 100) grid with one rx antenna and fewer than 128 slots
+    matches the XLA branch and the Pallas kernel; a frame with no valid
+    slot gives zeros; one frame without the batch axis gives the same grid."""
+    from ce5g_tpu.ops.interp_pallas import interpolate_pallas
+
+    s, k = 6, 100
+    vals, pos, valid = _slot_inputs(2, 1, s, k, 0.10, max_density=0.15, seed=5)
+    assert pos.shape[1] < 128
+    valid[1] = 0.0
+    vals[1] = 0.0
+    out = _slot_interp(vals, pos, valid, (s, k), method)
+    ref = np.asarray(_j_slot_xla(vals[0], pos[0], valid[0], (s, k), method))
+    np.testing.assert_allclose(out[0], ref, rtol=0, atol=1e-5)
+    kern = np.asarray(interpolate_pallas(vals[0], pos[0], valid[0], (s, k), method,
+                                         interpret=True))
+    assert np.mean(np.abs(out[0] - kern) < 1e-3) > 0.99
+    assert np.all(out[1] == 0)
+    one = _slot_interp(vals[0], pos[0], valid[0], (s, k), method)
+    np.testing.assert_allclose(one, out[0], rtol=0, atol=1e-6)  # summation order
+
+
+def test_interpolate_slots_rules_and_work():
+    b, r, p, s, k = 2, 3, 50, 6, 39
+    vals, pos, valid = _slot_inputs(b, r, s, k, 0.10)
+    v, po, ok = torch.from_numpy(vals), torch.from_numpy(pos), torch.from_numpy(valid)
+    with pytest.raises(ValueError, match="Unknown interpolation method"):
+        slot_mod.interpolate_slots(v, po, ok, (s, k), "spline")
+    with pytest.raises(ValueError, match="do not match"):
+        slot_mod.interpolate_slots(v, po[:, :-1], ok, (s, k), "linear")
+    # cubic scores every valid window entry: (9 + 4R) operations each
+    p = pos.shape[1]
+    n_valid = valid.sum(-1).astype(int)
+    nbytes, flops = slot_mod.work(v, po, ok, (s, k), "cubic")
+    assert nbytes == 8 * b * r * p + 12 * b * p + 8 * b * r * s * k
+    assert flops == (9 + 4 * r) * s * k * int(np.minimum(n_valid, min(128, p)).sum())
+    _, flops_nearest = slot_mod.work(v, po, ok, (s, k), "nearest")
+    _, flops_linear = slot_mod.work(v, po, ok, (s, k), "linear")
+    assert 0 < flops_nearest < flops_linear
 
 
 @pytest.fixture
@@ -142,3 +259,19 @@ def test_interp_kernel_matches_plain(card, method):
     out = interp_mod.interpolate_grid_fused(v, m, method)
     ref = interp_mod.interpolate_grid_plain(v, m, method)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+@pytest.mark.parametrize("density", [0.01, 0.10, 0.20])
+@pytest.mark.parametrize("r", [2, 3, 4])  # 3 takes the body with R at run time
+def test_slot_interp_kernel_matches_plain(card, r, density, method):
+    vals, pos, valid = _slot_inputs(8, r, 14, 599, density)
+    valid[3] = 0.0  # a frame with no valid slot
+    v, po, ok = (torch.from_numpy(x).to(card) for x in (vals, pos, valid))
+    before = slot_mod.launches
+    out = slot_mod.interpolate_slots(v, po, ok, (14, 599), method)
+    assert slot_mod.launches == before + 1
+    ref = slot_mod.interpolate_slots_plain(v, po, ok, (14, 599), method)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
+    assert bool((out[3] == 0).all())

@@ -19,12 +19,15 @@ tilings; above ≈20% density they make it approximate, while the XLA
 branch, and this module, stay exact.
 
 On a CUDA tensor :func:`interpolate_slots` launches the hand-written
-kernel in ``csrc/interp.cu`` (one block per frame: a stable counting sort
-of the pilots by subcarrier in shared memory, then one thread per output
-point). On the H100 it is bound by operations (≈17 float operations per
-candidate for 'cubic'); the source note has the numbers. On a CPU tensor
-it runs :func:`interpolate_slots_plain`, the same function in plain
-PyTorch.
+kernel in ``csrc/interp.cu``: one block per frame sorts the pilots by
+subcarrier in shared memory (a stable counting sort), then a warp takes
+16 grid columns at once, two lanes a column and seven symbols a lane, so
+that a candidate's coordinates and values are loaded once into registers
+and used for seven output points; the Gaussian weight is one multiply-add
+and one ``ex2``. On the H100 it is bound by operations (≈17 float
+operations per candidate for 'cubic'); the source note has the design
+and the numbers. On a CPU tensor it runs :func:`interpolate_slots_plain`,
+the same function in plain PyTorch.
 
 ``launches`` counts kernel launches.
 """
@@ -42,6 +45,8 @@ _METHODS = ("nearest", "linear", "cubic")
 _MAX_R = 8
 #: shared memory a block may use on the H100
 _MAX_SMEM = 232448
+#: the kernel holds squared distances in float32, exact up to 2^24
+_MAX_D2 = 1 << 24
 
 launches = 0
 
@@ -129,7 +134,7 @@ def interpolate_slots_plain(pilot_values: torch.Tensor, positions: torch.Tensor,
 
 def _smem_bytes(r: int, p: int, k: int) -> int:
     """Shared memory of one block of the kernel (see csrc/interp.cu)."""
-    return 8 * r * p + 3 * 4 * p + 4 * (2 * k + 1)
+    return 8 * r * p + 4 * 4 * p + 4 * (2 * k + 1)
 
 
 def _lib() -> ctypes.CDLL:
@@ -179,9 +184,9 @@ def interpolate_slots(pilot_values: torch.Tensor, positions: torch.Tensor,
     if pilot_values.dtype != torch.complex64:
         raise TypeError(f"interpolation kernel takes complex64, got {pilot_values.dtype}")
     smem = _smem_bytes(r, p, k)
-    if r > _MAX_R or smem > _MAX_SMEM or max(s, k) > 32767:
+    if r > _MAX_R or smem > _MAX_SMEM or s * s + k * k > _MAX_D2:
         raise ValueError(
-            f"interpolation kernel takes R ≤ {_MAX_R}, S, K ≤ 32767 and "
+            f"interpolation kernel takes R ≤ {_MAX_R}, S² + K² ≤ {_MAX_D2} and "
             f"{smem} ≤ {_MAX_SMEM} bytes of shared memory; got R={r}, P={p}, S={s}, K={k}"
         )
     out = torch.empty(b, r, s, k, dtype=torch.complex64, device=dev)

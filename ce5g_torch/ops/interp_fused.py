@@ -7,12 +7,18 @@ nearest-pilot fills, a tied-shell k-NN over the 2·S ('nearest') or 4·S
 ('linear') row candidates, and a normalised weighted mean.
 
 On a CUDA tensor :func:`interpolate_grid_fused` launches the hand-written
-kernel in ``csrc/interp_fused.cu`` (one block per frame: warp-ballot fills
-of pilot positions into shared memory, then one thread per output point).
-On the H100 it is bound by bytes: values and mask read once and the
-output written once, ≥ 44 µs at the main-path shape; the source note has
-the numbers. On a CPU tensor it runs :func:`interpolate_grid_plain`, the
-same function in plain PyTorch.
+kernel in ``csrc/interp_fused.cu``: a block per (frame, tile of ≤ 128
+columns) turns the frame's mask into bits, fills the four candidates of
+each (row, column) of its tile into shared memory as one 8-byte entry,
+and then gives each output point a thread that visits the source rows
+outwards from its own and stops where the row distance alone exceeds the
+top shell (exact pruning), with integer distances and a branch-free
+shell update; accepted candidates are listed and then applied by the
+lanes of a warp together. On the H100 it is bound by bytes: values and
+mask read once and the output written once, ≥ 44 µs at the main-path
+shape; the pruning makes it do less than :func:`work` counts. The source
+note has the design and the numbers. On a CPU tensor it runs
+:func:`interpolate_grid_plain`, the same function in plain PyTorch.
 
 ``launches`` counts kernel launches.
 """
@@ -24,9 +30,12 @@ import torch
 
 from . import _build
 
-#: shared memory a block may use on the H100 (the fills take 8·S·K bytes)
+#: shared memory a block may use on the H100
 _MAX_SMEM = 232448
 _MAX_R = 8
+_MAX_S = 127
+_MAX_K = 32767
+_TILE = 128  # most columns a block takes
 
 launches = 0
 
@@ -114,6 +123,14 @@ def interpolate_grid_plain(value_grid: torch.Tensor, mask: torch.Tensor, method:
     return torch.complex(apply(src.real), apply(src.imag))
 
 
+def _smem_bytes(s: int, k: int) -> int:
+    """Shared memory of one block of the kernel (see csrc/interp_fused.cu):
+    the tile's candidates, the frame's mask bits with four carried pilots
+    a word, and 8 listed candidates for each of 256 threads."""
+    tiles = -(-k // _TILE)
+    return 8 * s * -(-k // tiles) + 20 * s * -(-k // 32) + 4 * 8 * 256
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("interp_fused")
     fn = lib.interp_fused_launch
@@ -149,10 +166,11 @@ def interpolate_grid_fused(value_grid: torch.Tensor, mask: torch.Tensor, method:
         raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {value_grid.device}")
     if value_grid.dtype != torch.complex64:
         raise TypeError(f"interpolation kernel takes complex64, got {value_grid.dtype}")
-    if r > _MAX_R or 8 * s * k > _MAX_SMEM or k > 32767:
+    smem = _smem_bytes(s, k)
+    if r > _MAX_R or s > _MAX_S or k > _MAX_K or smem > _MAX_SMEM:
         raise ValueError(
-            f"interpolation kernel takes R ≤ {_MAX_R} and 8·S·K ≤ {_MAX_SMEM} bytes; "
-            f"got R={r}, S={s}, K={k}"
+            f"interpolation kernel takes R ≤ {_MAX_R}, S ≤ {_MAX_S}, K ≤ {_MAX_K} and "
+            f"{smem} ≤ {_MAX_SMEM} bytes of shared memory; got R={r}, S={s}, K={k}"
         )
     vals = value_grid.contiguous()
     m = mask.to(torch.float32).contiguous()

@@ -6,8 +6,10 @@
 Phases, one line each; any failure exits non-zero:
   1. setup: the card's name and power limit; build the three CUDA kernels;
   2. the HPD-solve kernel against its plain PyTorch version;
-  3. the grid-interpolation kernel against its plain PyTorch version;
-  4. the slot-interpolation kernel against its plain PyTorch version;
+  3. the grid-interpolation kernel against its plain PyTorch version, at
+     256 frames and on the hard cases of ce5g_torch.ops.hard_cases;
+  4. the slot-interpolation kernel against its plain PyTorch version,
+     likewise;
   5. the main path — draw_frames → simulate_batch → estimate_batch for
      'ls', 'mmse' and 'mmse_full' (linear) and 'ls' with 'cubic' at the
      bench config (4×4 ETU, 200 Hz, 10 dB, 10% pilots, 256 frames) — with
@@ -18,16 +20,24 @@ Phases, one line each; any failure exits non-zero:
      JAX package's results and orderings, launch counts, and the
      scipy.griddata cross-check;
   7. each kernel held against its plain version again on the inputs each
-     path gave it, then times (CUDA events) of each kernel, its plain
-     version and the library yardstick at those inputs, and pipeline
-     frames/s.
-Then one JSON line of per-kernel numbers, and last the device line.
+     path gave it, then times (CUDA events, the median of 5 rounds of 20
+     calls with the least and the largest round) of each kernel, its
+     plain version and the library yardstick at those inputs, the two
+     interpolation kernels at 1% and 20% pilots against the times of the
+     bodies they replaced, and pipeline frames/s;
+  8. where a batch goes: a torch.profiler trace of three warm batches of
+     the pipeline for 'mmse_full', 'ls' and 'ls:cubic' — the ten device
+     operations with the most time, the device's idle share of the window
+     and the launches per batch.
+Then the wall time, one JSON line of per-kernel numbers, and last the
+device line.
 
 Imports neither JAX nor ce5g_tpu. Needs a CUDA card: without one it exits
 non-zero and prints no result.
 """
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -40,6 +50,12 @@ NMSE_SLACK_DB = 0.15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 PARITY_FRAMES = 256
+# Times of the kernel bodies that the present interpolation kernels replaced,
+# on an NVIDIA H100 80GB HBM3 at 700 W, at the inputs of slower_than_replaced()
+# (one block per frame, one thread per output point; median of 5 rounds of 20
+# calls, the least of four runs). The present kernels must not be slower.
+REPLACED_GRID_MS_AT_1PCT = 0.4667
+REPLACED_SLOT_MS_AT_20PCT = 0.5292
 # Quality anchors of the parity path: the JAX package's own study at 256
 # frames per cell (results/parity_phase2.json), mean NMSE dB and the band
 # the port's average must fall in. The draws differ (torch.Generator vs
@@ -60,21 +76,25 @@ def fail_unless(ok, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+def cuda_ms(fn, rounds=5, iters=20, warmup=3):
+    """Device time of ``fn()``: (median, least, largest) over ``rounds``
+    rounds, each the mean of ``iters`` back-to-back calls."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times), min(times), max(times)
 
 
 def bound(nbytes, flops):
@@ -139,6 +159,7 @@ def random_masks(gen, dev, b, s, k, density):
 
 def check_interp(dev, b):
     import torch
+    from ce5g_torch.ops import hard_cases
     from ce5g_torch.ops import interp_fused as interp_mod
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -164,6 +185,21 @@ def check_interp(dev, b):
     print(f"interp_fused vs plain: {b} frames x ({r}, {s}, {k}) at 10% and 1%, "
           f"nearest+linear, worst max abs error {worst:.3e} of value scale; "
           f"empty mask -> 0: ok")
+    worst = 0.0
+    for case in hard_cases.GRID_CASES:
+        for rr in (4, 3):  # 3 takes the body with R at run time
+            v, mask = (x.to(dev) for x in hard_cases.grid_case(case, rr))
+            scale = float(v.abs().max())
+            for method in ("nearest", "linear"):
+                out = interp_mod.interpolate_grid_fused(v, mask, method)
+                err = float((out - interp_mod.interpolate_grid_plain(v, mask, method))
+                            .abs().max())
+                fail_unless(err <= 1e-5 * scale,
+                            f"interp {method} on hard case {case} (R = {rr}): max abs error "
+                            f"{err:.2e} <= 1e-5 x value scale {scale:.2f}")
+                worst = max(worst, err / scale)
+    print(f"interp_fused vs plain on the hard cases ({', '.join(hard_cases.GRID_CASES)}; "
+          f"R = 4 and 3, nearest+linear): worst max abs error {worst:.3e} of value scale")
 
 
 def slot_inputs(gen, dev, b, r, s, k, density, max_density):
@@ -182,6 +218,7 @@ def slot_inputs(gen, dev, b, r, s, k, density, max_density):
 
 def check_slot_interp(dev, b):
     import torch
+    from ce5g_torch.ops import hard_cases
     from ce5g_torch.ops import interp as slot_mod
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -208,6 +245,24 @@ def check_slot_interp(dev, b):
     print(f"interp (slot form) vs plain: {b} frames, R = {r} at 1%, 10%, 20% (P = 2096) and "
           f"10% (P = 1257), R = 1 on a (6, 100) grid (P = 90), R = 2 and 3 at 10% (P = 2096); "
           f"nearest+linear+cubic, worst max abs error {worst:.3e} of value scale; empty frame -> 0: ok")
+    worst = 0.0
+    for case in hard_cases.SLOT_CASES:
+        for rr in (1, 2, 3, 4):
+            c = hard_cases.slot_case(case, rr)
+            v, pos, valid = (c[key].to(dev) for key in ("values", "positions", "valid"))
+            scale = float(v.abs().max())
+            for method in ("nearest", "linear", "cubic"):
+                out = slot_mod.interpolate_slots(v, pos, valid, c["grid"], method)
+                err = float((out - slot_mod.interpolate_slots_plain(v, pos, valid, c["grid"],
+                                                                    method)).abs().max())
+                fail_unless(err <= 1e-5 * scale,
+                            f"slot interp {method} on hard case {case} (R = {rr}): max abs "
+                            f"error {err:.2e} <= 1e-5 x value scale {scale:.2f}")
+                fail_unless(bool((out[valid.sum(-1) == 0] == 0).all()),
+                            f"slot interp {method} on hard case {case}: empty frame -> 0")
+                worst = max(worst, err / scale)
+    print(f"interp (slot form) vs plain on the hard cases ({', '.join(hard_cases.SLOT_CASES)}; "
+          f"R = 1-4, nearest+linear+cubic): worst max abs error {worst:.3e} of value scale")
 
 
 def bench_setup(dev, b):
@@ -423,6 +478,113 @@ def hold_against_plain(path, captured):
     return errs
 
 
+def kernel_row(name, source, replaces, launches, err, fn, plain, work, library=None):
+    """One entry of the ``kernels`` line, every number measured here."""
+    ms, ms_min, ms_max = cuda_ms(fn)
+    bound_ms, bound_by = bound(*work)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "ms_min": ms_min, "ms_max": ms_max,
+        "plain_ms": cuda_ms(plain)[0],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if library is None else cuda_ms(library)[0],
+    }
+
+
+def slower_than_replaced(dev):
+    """The two interpolation kernels where their designs gain least: the
+    grid form at 1% pilots (no source row can be pruned) and the slot form
+    at 20% (the densest cell of the parity study), against the recorded
+    times of the bodies they replaced."""
+    import torch
+    from ce5g_torch.ops import interp as slot_mod
+    from ce5g_torch.ops import interp_fused as interp_mod
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, r, s, k = BATCH, 4, 14, 599
+    mask = (torch.rand(b, s, k, generator=gen, device=dev) < 0.01).float()
+    v = torch.complex(torch.randn(b, r, s, k, generator=gen, device=dev),
+                      torch.randn(b, r, s, k, generator=gen, device=dev)) * mask[:, None]
+    grid_ms = cuda_ms(lambda: interp_mod.interpolate_grid_fused(v, mask, "linear"))
+    sv, pos, valid = slot_inputs(gen, dev, b, 2, s, k, 0.20, 0.25)
+    slot_ms = cuda_ms(lambda: slot_mod.interpolate_slots(sv, pos, valid, (s, k), "cubic"))
+    print(f"interp_fused at 1% pilots {tuple(v.shape)} linear: {grid_ms[0]:.4f} ms "
+          f"({grid_ms[1]:.4f}-{grid_ms[2]:.4f}), the body it replaced {REPLACED_GRID_MS_AT_1PCT} ms; "
+          f"interp at 20% pilots {tuple(sv.shape)} cubic: {slot_ms[0]:.4f} ms "
+          f"({slot_ms[1]:.4f}-{slot_ms[2]:.4f}), the body it replaced {REPLACED_SLOT_MS_AT_20PCT} ms")
+    fail_unless(grid_ms[0] <= REPLACED_GRID_MS_AT_1PCT,
+                "interp_fused at 1% pilots no slower than the body it replaced")
+    fail_unless(slot_ms[0] <= REPLACED_SLOT_MS_AT_20PCT,
+                "interp at 20% pilots no slower than the body it replaced")
+
+
+def pipeline(dev, gen, cfg, params, estimator, method="linear"):
+    """Fresh draws → simulate → estimate → NMSE dB (a host number, so the
+    call ends synchronised)."""
+    from ce5g_torch.estimators import estimate_batch
+    from ce5g_torch.physics import draw_frames, simulate_batch
+    from ce5g_torch.utils import nmse_db
+
+    draws = draw_frames(gen, params, cfg, device=dev)
+    frames = simulate_batch(draws, params, cfg=cfg, device=dev)
+    h = estimate_batch(frames, cfg=cfg, estimator=estimator, method=method, device=dev)
+    return float(nmse_db(frames.channel, h))
+
+
+PIPELINES = (("mmse_full", "linear"), ("ls", "linear"), ("ls", "cubic"))
+
+
+def where_a_batch_goes(dev, gen, cfg, params, rates, batches=3):
+    """A torch.profiler trace (device activity only: recording the host's
+    operators as well slows the host, which is what the card waits for) of
+    ``batches`` warm batches of each pipeline: the ten device operations
+    with the most time, the device's idle share of the window (first
+    device operation's start to the last one's end) and of a batch as
+    timed without the profiler (``rates``, frames/s), and the device
+    operations launched per batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for estimator, method in PIPELINES:
+        name = estimator if method == "linear" else f"{estimator}:{method}"
+        for _ in range(2):
+            pipeline(dev, gen, cfg, params, estimator, method)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(batches):
+                pipeline(dev, gen, cfg, params, estimator, method)
+            torch.cuda.synchronize()
+        ops = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        fail_unless(ops, f"the profiler recorded device operations for {name}")
+        ops.sort(key=lambda o: o[1])
+        busy, edge = 0.0, ops[0][1]
+        for _, start, end in ops:  # the union of the operations' intervals
+            if end > edge:
+                busy += end - max(start, edge)
+                edge = end
+        window = edge - ops[0][1]
+        by_name = {}
+        for op_name, start, end in ops:
+            total, count = by_name.get(op_name, (0.0, 0))
+            by_name[op_name] = (total + end - start, count + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        batch_ms = BATCH / rates[name] * 1e3
+        print(f"where a batch goes, {name} ({batches} warm batches of {BATCH} frames): window "
+              f"{window / batches / 1e3:.3f} ms a batch, device busy {busy / batches / 1e3:.3f} ms, "
+              f"idle share {1.0 - busy / window:.3f}; a batch without the profiler "
+              f"{batch_ms:.3f} ms, idle share of it {1.0 - busy / batches / 1e3 / batch_ms:.3f}; "
+              f"{len(ops) / batches:.1f} device operations a batch")
+        for op_name, (total, count) in top:
+            short = op_name
+            for noise in ("void ", "at::native::", "(anonymous namespace)::", "c10::"):
+                short = short.replace(noise, "")
+            print(f"    {total / batches / 1e3:8.4f} ms a batch  {count / batches:6.1f} x  "
+                  f"{short[:150]}")
+
+
 def main():
     import torch
 
@@ -434,10 +596,8 @@ def main():
     from ce5g_torch.ops import hpd_solve as hpd_mod
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
-    from ce5g_torch.physics import draw_frames, simulate_batch
-    from ce5g_torch.estimators import estimate_batch
-    from ce5g_torch.utils import nmse_db
 
+    wall_t0 = time.time()
     dev = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -471,81 +631,65 @@ def main():
     slot_args = parity_args["interp"]
     bench_slot = captured["interp"]
     b, n, r = rhs.shape
-    hpd_bound = bound(*hpd_mod.work(b, n, r))
-    interp_bound = bound(*interp_mod.work(mask, vals.shape[1], method))
-    slot_bound = bound(*slot_mod.work(*slot_args))
     kernels = [
-        {
-            "name": "hpd_solve", "route": "cuda", "source": "ce5g_torch/csrc/hpd_solve.cu",
-            "replaces": "ce5g_tpu/ops/hpd_solve_pallas.py:45",
-            "launches": launches["hpd_solve"], "max_abs_err": main_errs["hpd_solve"],
-            "ms": cuda_ms(lambda: hpd_mod.hpd_solve(gram, rhs)),
-            "plain_ms": cuda_ms(lambda: hpd_mod.hpd_solve_plain(gram, rhs)),
-            "bound_ms": hpd_bound[0], "bound_by": hpd_bound[1],
-            "library_ms": cuda_ms(lambda: torch.linalg.solve(gram, rhs)),
-        },
-        {
-            "name": "interp_fused", "route": "cuda", "source": "ce5g_torch/csrc/interp_fused.cu",
-            "replaces": "ce5g_tpu/ops/interp_fused_pallas.py:92",
-            "launches": launches["interp_fused"], "max_abs_err": main_errs["interp_fused"],
-            "ms": cuda_ms(lambda: interp_mod.interpolate_grid_fused(vals, mask, method)),
-            "plain_ms": cuda_ms(lambda: interp_mod.interpolate_grid_plain(vals, mask, method)),
-            "bound_ms": interp_bound[0], "bound_by": interp_bound[1],
-            "library_ms": None,
-        },
-        {
-            "name": "interp", "route": "cuda", "source": "ce5g_torch/csrc/interp.cu",
-            "replaces": "ce5g_tpu/ops/interp_pallas.py:49",
-            "launches": parity_launches["interp"], "max_abs_err": parity_errs["interp"],
-            "ms": cuda_ms(lambda: slot_mod.interpolate_slots(*slot_args)),
-            "plain_ms": cuda_ms(lambda: slot_mod.interpolate_slots_plain(*slot_args)),
-            "bound_ms": slot_bound[0], "bound_by": slot_bound[1],
-            "library_ms": None,
-        },
+        kernel_row("hpd_solve", "ce5g_torch/csrc/hpd_solve.cu",
+                   "ce5g_tpu/ops/hpd_solve_pallas.py:45", launches["hpd_solve"],
+                   main_errs["hpd_solve"], lambda: hpd_mod.hpd_solve(gram, rhs),
+                   lambda: hpd_mod.hpd_solve_plain(gram, rhs), hpd_mod.work(b, n, r),
+                   lambda: torch.linalg.solve(gram, rhs)),
+        kernel_row("interp_fused", "ce5g_torch/csrc/interp_fused.cu",
+                   "ce5g_tpu/ops/interp_fused_pallas.py:92", launches["interp_fused"],
+                   main_errs["interp_fused"],
+                   lambda: interp_mod.interpolate_grid_fused(vals, mask, method),
+                   lambda: interp_mod.interpolate_grid_plain(vals, mask, method),
+                   interp_mod.work(mask, vals.shape[1], method)),
+        kernel_row("interp", "ce5g_torch/csrc/interp.cu",
+                   "ce5g_tpu/ops/interp_pallas.py:49", parity_launches["interp"],
+                   parity_errs["interp"], lambda: slot_mod.interpolate_slots(*slot_args),
+                   lambda: slot_mod.interpolate_slots_plain(*slot_args),
+                   slot_mod.work(*slot_args)),
     ]
     shapes = {"hpd_solve": tuple(gram.shape), "interp_fused": tuple(vals.shape),
               "interp": tuple(slot_args[0].shape) + (slot_args[-1],)}
     for kern in kernels:
-        print(f"{kern['name']}: kernel {kern['ms']:.4f} ms, plain {kern['plain_ms']:.4f} ms, "
+        print(f"{kern['name']}: kernel {kern['ms']:.4f} ms ({kern['ms_min']:.4f}-"
+              f"{kern['ms_max']:.4f} over 5 rounds of 20), plain {kern['plain_ms']:.4f} ms, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), library "
               f"{kern['library_ms'] if kern['library_ms'] is None else round(kern['library_ms'], 4)} ms "
               f"at {shapes[kern['name']]}")
     bench_bound = bound(*slot_mod.work(*bench_slot))
+    bench_ms = cuda_ms(lambda: slot_mod.interpolate_slots(*bench_slot))
     print(f"interp at the main path's ls:cubic inputs {tuple(bench_slot[0].shape)} "
-          f"P = {bench_slot[1].shape[1]}: kernel "
-          f"{cuda_ms(lambda: slot_mod.interpolate_slots(*bench_slot)):.4f} ms, plain "
-          f"{cuda_ms(lambda: slot_mod.interpolate_slots_plain(*bench_slot)):.4f} ms, bound "
+          f"P = {bench_slot[1].shape[1]}: kernel {bench_ms[0]:.4f} ms ({bench_ms[1]:.4f}-"
+          f"{bench_ms[2]:.4f}), plain "
+          f"{cuda_ms(lambda: slot_mod.interpolate_slots_plain(*bench_slot))[0]:.4f} ms, bound "
           f"{bench_bound[0]:.4f} ms ({bench_bound[1]})")
+    slower_than_replaced(dev)
 
-    # pipeline: fresh draws → simulate → mmse_full → NMSE, host clock
+    # pipeline: fresh draws → simulate → estimate → NMSE, host clock
     gen = torch.Generator(device=dev).manual_seed(4)
-
-    def pipeline(estimator, method="linear"):
-        draws = draw_frames(gen, params, cfg, device=dev)
-        frames = simulate_batch(draws, params, cfg=cfg, device=dev)
-        h = estimate_batch(frames, cfg=cfg, estimator=estimator, method=method, device=dev)
-        return float(nmse_db(frames.channel, h))
-
     rates = {}
-    for estimator, method in (("mmse_full", "linear"), ("ls", "linear"), ("ls", "cubic")):
+    for estimator, method in PIPELINES:
         for _ in range(3):
-            pipeline(estimator, method)
+            pipeline(dev, gen, cfg, params, estimator, method)
         torch.cuda.synchronize()
         reps = 20
         t0 = time.perf_counter()
         for _ in range(reps):
-            pipeline(estimator, method)
+            pipeline(dev, gen, cfg, params, estimator, method)
         torch.cuda.synchronize()
         name = estimator if method == "linear" else f"{estimator}:{method}"
         rates[name] = BATCH * reps / (time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
-    pipeline("mmse_full")
+    pipeline(dev, gen, cfg, params, "mmse_full")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"pipeline (draw+simulate+estimate+NMSE, batch {BATCH}): "
           + ", ".join(f"{e} {v:.1f} frames/s" for e, v in rates.items())
           + f"; peak memory {peak_gib:.2f} GiB")
     print(f"parity study wall time ({PARITY_FRAMES} frames/cell, 17 cells, first run): "
           f"{parity_s:.3f} s")
+    where_a_batch_goes(dev, gen, cfg, params, rates)
+    print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -7,12 +7,15 @@ The tests marked ``cuda`` hold the CUDA kernels against the plain
 versions and run only where there is a card (``chip_smoke.py`` does the
 same on the main path's shapes).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ce5g_torch.ops import hard_cases
 from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as interp_mod
@@ -124,6 +127,24 @@ def test_interpolate_grid_empty_mask_and_rules():
         interpolate_grid(v, None, "linear")
 
 
+@pytest.mark.parametrize("method", ["nearest", "linear"])
+@pytest.mark.parametrize("case", hard_cases.GRID_CASES)
+def test_interpolate_grid_hard_cases_match_xla(case, method):
+    """The inputs that stress the CUDA kernel's design (row pruning, the
+    list of accepted candidates, tiles on mask bits), through the JAX
+    package's XLA branch and the plain version."""
+    from ce5g_tpu.estimators.interpolate import interpolate_grid as j_interpolate_grid
+
+    j_xla = jax.jit(j_interpolate_grid, static_argnames=("method", "impl"))
+    vals, mask = hard_cases.grid_case(case)
+    out = interp_mod.interpolate_grid_fused(vals, mask, method).numpy()
+    assert out.shape == tuple(vals.shape) and np.all(np.isfinite(out))
+    for f in range(vals.shape[0]):
+        ref = j_xla(jnp.asarray(vals[f].numpy()), jnp.asarray(mask[f].numpy()),
+                    method=method, impl="xla")
+        np.testing.assert_allclose(out[f], np.asarray(ref), rtol=0, atol=1e-5)
+
+
 def _slot_inputs(frames, r, s, k, density, max_density=0.25, seed=0):
     """Pilot slots of ce5g_tpu's scattered patterns (one per frame) and
     random complex values, zero at invalid slots, as numpy arrays."""
@@ -215,6 +236,36 @@ def test_interpolate_slots_small_grid_and_empty_frame(method):
     np.testing.assert_allclose(one, out[0], rtol=0, atol=1e-6)  # summation order
 
 
+@functools.lru_cache(maxsize=None)
+def _slot_hard_case_xla(case, method):
+    """The XLA branch on a hard case with four antennas, frame by frame."""
+    c = hard_cases.slot_case(case, 4)
+    vals, pos, valid = (c[key].numpy() for key in ("values", "positions", "valid"))
+    return np.stack([np.asarray(_j_slot_xla(vals[f], pos[f], valid[f], c["grid"], method))
+                     for f in range(vals.shape[0])])
+
+
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+@pytest.mark.parametrize(
+    "case,r",
+    [("full_column", 1), ("full_column", 2), ("full_column", 3), ("full_column", 4),
+     ("few_valid", 2), ("few_slots", 2)],
+)
+def test_interpolate_slots_hard_cases_match_xla(case, r, method):
+    """A column holding every symbol's pilot (ties in the stable sort),
+    fewer valid slots than the 128-candidate window (one frame has none)
+    and fewer slots than 128, with 1-4 antennas: the antennas of a case
+    are the first r of one draw, so one XLA result serves them all."""
+    c = hard_cases.slot_case(case, r)
+    out = slot_mod.interpolate_slots(c["values"], c["positions"], c["valid"], c["grid"],
+                                     method).numpy()
+    ref = _slot_hard_case_xla(case, method)[:, :r]
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    empty = c["valid"].sum(-1) == 0
+    assert np.all(out[empty.numpy()] == 0)
+
+
 def test_interpolate_slots_rules_and_work():
     b, r, p, s, k = 2, 3, 50, 6, 39
     vals, pos, valid = _slot_inputs(b, r, s, k, 0.10)
@@ -275,3 +326,29 @@ def test_slot_interp_kernel_matches_plain(card, r, density, method):
     ref = slot_mod.interpolate_slots_plain(v, po, ok, (14, 599), method)
     assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
     assert bool((out[3] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "linear"])
+@pytest.mark.parametrize("r", [4, 3])  # 3 takes the body with R at run time
+@pytest.mark.parametrize("case", hard_cases.GRID_CASES)
+def test_interp_kernel_hard_cases_match_plain(card, case, r, method):
+    vals, mask = (x.to(card) for x in hard_cases.grid_case(case, r))
+    before = interp_mod.launches
+    out = interp_mod.interpolate_grid_fused(vals, mask, method)
+    assert interp_mod.launches == before + 1
+    ref = interp_mod.interpolate_grid_plain(vals, mask, method)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(vals.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", hard_cases.SLOT_CASES)
+def test_slot_interp_kernel_hard_cases_match_plain(card, case, r, method):
+    c = hard_cases.slot_case(case, r)
+    v, po, ok = (c[key].to(card) for key in ("values", "positions", "valid"))
+    out = slot_mod.interpolate_slots(v, po, ok, c["grid"], method)
+    ref = slot_mod.interpolate_slots_plain(v, po, ok, c["grid"], method)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
+    assert bool((out[ok.sum(-1) == 0] == 0).all())

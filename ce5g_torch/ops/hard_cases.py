@@ -1,4 +1,4 @@
-"""Inputs that stress the two interpolation kernels' designs.
+"""Inputs that stress the three kernels' designs.
 
 One definition for the CPU tests (JAX package vs plain version), the
 card tests (kernel vs plain version) and ``chip_smoke.py``. Everything is
@@ -16,6 +16,17 @@ Slot form (``interp``): the kernel sorts pilots by subcarrier and gives
 every column a window of the same length, so the cases are a column
 holding all S symbols' pilots (ties in the stable sort), fewer valid
 slots than the 128-candidate window, and fewer slots than 128 altogether.
+
+HPD solve (``hpd_solve``): the kernel lays a grid of 16 × 16 threads
+over the matrix in blocks, so the cases are n = 1 and 2, n at and around
+multiples of 8 and 16 where an instance changes (and 31-33, 63-65 where
+the lanes' entry count does), n = 128, R = 1, 3 and 8, one system and an
+odd count, condition number 1e4, and systems that are not positive
+definite: first, middle and last of a batch, one with a NaN entry, one
+whose pivot turns negative only at the last column. The widest instance
+(n = 113-128, all eight column blocks and the ninth row block in use)
+has four more cases with R = 8 and seeds of their own, three of them a
+single system.
 """
 from __future__ import annotations
 
@@ -26,6 +37,20 @@ import torch
 
 GRID_CASES = ("one_row", "single_pilot", "lattice", "full", "s1_k45", "density_1", "density_25")
 SLOT_CASES = ("full_column", "few_valid", "few_slots")
+#: name → (systems, n, right-hand sides, condition number)
+HPD_SHAPES = {
+    "n1": (3, 1, 1, 100.0), "n2": (5, 2, 3, 100.0), "n8": (5, 8, 8, 100.0),
+    "n9": (3, 9, 1, 100.0), "n16": (3, 16, 4, 100.0), "n17": (3, 17, 3, 100.0),
+    "n31": (2, 31, 3, 100.0), "n32": (2, 32, 4, 100.0), "n33": (2, 33, 8, 100.0),
+    "n48": (2, 48, 1, 100.0), "n49": (1, 49, 4, 100.0), "n63": (1, 63, 3, 100.0),
+    "n64": (2, 64, 8, 100.0), "n65": (1, 65, 4, 100.0), "n96": (1, 96, 3, 100.0),
+    "n97": (1, 97, 1, 100.0), "n128": (1, 128, 8, 100.0), "one_system": (1, 45, 4, 100.0),
+    "cond_1e4": (5, 24, 4, 1e4), "not_pd": (7, 20, 4, 100.0), "nan_entry": (4, 20, 2, 100.0),
+    "last_pivot": (4, 33, 3, 100.0),
+    "n113": (1, 113, 8, 100.0), "n120": (2, 120, 8, 100.0), "n127": (1, 127, 8, 100.0),
+    "n128_again": (1, 128, 8, 100.0),
+}
+HPD_CASES = tuple(HPD_SHAPES)
 
 
 def _complex(rng, shape):
@@ -100,3 +125,29 @@ def slot_case(name: str, r: int = 2) -> Dict[str, object]:
     vals = np.ascontiguousarray(_complex(rng, (len(frames), max(r, 4), p))[:, :r]) * valid[:, None]
     return {"values": torch.from_numpy(vals), "positions": torch.from_numpy(pos),
             "valid": torch.from_numpy(valid), "grid": grid}
+
+
+def hpd_case(name: str) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]:
+    """(gram (B, n, n) complex64, exactly Hermitian; rhs (B, n, R) complex64;
+    the indices of the systems that are not positive definite, whose
+    solution must be NaN while the others stay finite)."""
+    b, n, r, cond = HPD_SHAPES[name]
+    rng = np.random.default_rng(200 + HPD_CASES.index(name))
+    x = rng.standard_normal((b, n, n)) + 1j * rng.standard_normal((b, n, n))
+    gram = x @ np.conj(np.swapaxes(x, 1, 2)) + (n / cond) * np.eye(n)
+    gram = 0.5 * (gram + np.conj(np.swapaxes(gram, 1, 2)))
+    bad: Tuple[int, ...] = ()
+    if name == "not_pd":
+        bad = (0, 3, 6)
+        gram[0] = -np.eye(n)  # fails at the first pivot
+        gram[3] -= 2.0 * np.linalg.eigvalsh(gram[3])[n // 2] * np.eye(n)  # indefinite
+        gram[6] = -gram[6]
+    elif name == "nan_entry":
+        bad = (1,)
+        gram[1, 5, 2] = gram[1, 2, 5] = np.nan
+    elif name == "last_pivot":
+        bad = (2,)
+        chol = np.linalg.cholesky(gram[2])
+        gram[2, n - 1, n - 1] -= 2.0 * chol[n - 1, n - 1].real ** 2  # last pivot -L²
+    rhs = _complex(rng, (b, n, r))
+    return torch.from_numpy(np.ascontiguousarray(gram, np.complex64)), torch.from_numpy(rhs), bad

@@ -5,10 +5,12 @@ Replaces the TPU kernel ``ce5g_tpu/ops/hpd_solve_pallas.py::_kernel``
 solves the mmse_full Woodbury system (estimators/mmse.py).
 
 On a CUDA tensor :func:`hpd_solve` launches the hand-written kernel in
-``csrc/hpd_solve.cu``: one thread block per system, A in shared memory,
-right-looking Cholesky then forward and backward substitution in the same
-block. On the H100 it is bound by latency (≈ 6n dependent steps per
-system), not by bytes or operations; the source note has the numbers. On
+``csrc/hpd_solve.cu``: one thread block per system, an LDLᴴ elimination
+of the lower trapezoid of [[A], [Bᴴ]] held in registers (one barrier a
+column, the forward substitution riding on it), then a backward
+substitution by warps with shuffles. On the H100 it is bound by the
+length of one system's chain of n dependent steps, not by bytes or
+operations; the source note has the design and ``PERF.md`` the times. On
 a CPU tensor it runs :func:`hpd_solve_plain`, the same function in plain
 PyTorch (Cholesky plus two triangular solves, mirroring the JAX
 package's ``_xla_solve``). A system that is not positive definite gives
@@ -24,7 +26,7 @@ import torch
 
 from . import _build
 
-#: largest system the kernel takes: A in ≤ 128 KB of shared memory
+#: largest system the kernel takes: the published matrix in ≤ 140 KB of shared memory
 MAX_N = 128
 #: most right-hand sides the kernel takes
 MAX_R = 8
@@ -42,13 +44,19 @@ def hpd_solve_plain(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.full_like(x, float("nan")), x)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("hpd_solve")
-    fn = lib.hpd_solve_launch
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return lib
+_launch = None
+
+
+def _launcher():
+    """The C entry point, built and bound on first use."""
+    global _launch
+    if _launch is None:
+        fn = _build.library("hpd_solve").hpd_solve_launch
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, i, i, i, vp]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
 def hpd_solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -75,21 +83,22 @@ def hpd_solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if gram.device.type != "cuda":
         raise ValueError(f"hpd_solve runs on CPU or CUDA tensors, not {gram.device}")
     b, n, r = rhs.shape
-    if n > MAX_N or r > MAX_R:
-        raise ValueError(f"hpd_solve kernel takes n ≤ {MAX_N}, R ≤ {MAX_R}; got n={n}, R={r}")
+    if not (1 <= n <= MAX_N and 1 <= r <= MAX_R):
+        raise ValueError(f"hpd_solve kernel takes 1 ≤ n ≤ {MAX_N}, 1 ≤ R ≤ {MAX_R}; got n={n}, R={r}")
     if gram.dtype != torch.complex64 or rhs.dtype != torch.complex64:
         raise TypeError(f"hpd_solve kernel takes complex64, got {gram.dtype}, {rhs.dtype}")
-    gram = gram.contiguous()
-    rhs = rhs.contiguous()
+    gram, rhs = gram.contiguous(), rhs.contiguous()
     out = torch.empty_like(rhs)
-    lib = _lib()
-    status = lib.hpd_solve_launch(
+    if b == 0:
+        return out
+    status = _launcher()(
         gram.data_ptr(), rhs.data_ptr(), out.data_ptr(), b, n, r,
         torch.cuda.current_stream(gram.device).cuda_stream,
     )
     global launches
     launches += 1
-    _build.check(lib, status, "hpd_solve kernel")
+    if status != 0:
+        _build.check(_build.library("hpd_solve"), status, "hpd_solve kernel")
     return out
 
 

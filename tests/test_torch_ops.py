@@ -60,6 +60,39 @@ def test_hpd_solve_residual_and_nan():
     assert np.all(np.isfinite(np.delete(x, 3, axis=0)))
 
 
+@pytest.mark.parametrize("case", hard_cases.HPD_CASES)
+def test_hpd_solve_hard_cases_match_jax(case):
+    """The inputs that stress the CUDA kernel's design (n at the edges of
+    its thread grid's blocks, R = 1-8, one system, cond 1e4, systems that
+    are not positive definite), through the JAX package's XLA solve and,
+    for n within its limit, the Pallas kernel in interpret mode."""
+    from ce5g_tpu.ops.hpd_solve_pallas import MAX_N, _xla_solve, hpd_solve as j_hpd_solve
+
+    gram, rhs, bad = hard_cases.hpd_case(case)
+    x = hpd_mod.hpd_solve(gram, rhs).numpy()
+    refs = [np.asarray(_xla_solve(jnp.asarray(gram.numpy()), jnp.asarray(rhs.numpy())))]
+    if gram.shape[1] <= MAX_N:
+        refs.append(np.asarray(j_hpd_solve(jnp.asarray(gram.numpy()), jnp.asarray(rhs.numpy()),
+                                           force="interpret")))
+    is_bad = np.zeros(gram.shape[0], bool)
+    is_bad[list(bad)] = True
+    assert x.shape == tuple(rhs.shape)
+    assert np.all(np.isnan(x[is_bad])) and np.all(np.isfinite(x[~is_bad]))
+    for ref in refs:
+        assert np.all(np.isnan(ref[is_bad])) and np.all(np.isfinite(ref[~is_bad]))
+        assert _rel(x[~is_bad], ref[~is_bad]) < 1e-4
+
+
+def test_hpd_limits_and_work():
+    """The wrapper's shape rules hold before any launch."""
+    assert (hpd_mod.MAX_N, hpd_mod.MAX_R) == (128, 8)
+    gram, rhs, _ = hard_cases.hpd_case("n9")
+    with pytest.raises(ValueError, match="expected gram"):
+        hpd_mod.hpd_solve(gram, rhs[:, :-1])
+    assert hpd_mod.work(256, 45, 4) == (8 * 256 * (45 * 45 + 2 * 45 * 4),
+                                        8 * 256 * (45 ** 3 / 6 + 45 * 45 * 4))
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = (hpd_mod.launches, interp_mod.launches, slot_mod.launches)
     gram, rhs = _hpd_problem(5, 2, 6, 2)
@@ -300,6 +333,44 @@ def test_hpd_kernel_matches_plain(card, b, n, r):
     x = hpd_mod.hpd_solve(g, h)
     ref = hpd_mod.hpd_solve_plain(g, h)
     assert _rel(x.cpu(), ref.cpu()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", hard_cases.HPD_CASES)
+def test_hpd_kernel_hard_cases_match_plain(card, case):
+    gram, rhs, bad = hard_cases.hpd_case(case)
+    g, h = gram.to(card), rhs.to(card)
+    before = hpd_mod.launches
+    x = hpd_mod.hpd_solve(g, h)
+    assert hpd_mod.launches == before + 1
+    ref = hpd_mod.hpd_solve_plain(g, h)
+    is_bad = torch.zeros(gram.shape[0], dtype=torch.bool)
+    is_bad[list(bad)] = True
+    x, ref = x.cpu(), ref.cpu()
+    assert bool(torch.isnan(x[is_bad]).all()) and bool(torch.isfinite(x[~is_bad]).all())
+    assert bool(torch.isnan(ref[is_bad]).all())
+    assert _rel(x[~is_bad], ref[~is_bad]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_hpd_kernel_widest_instances_match_plain(card, b):
+    """Every n of the two widest instances (97-128) with every R, at the
+    hard cases' scaling (entries of order n, not of order 1)."""
+    worst = 0.0
+    for n in range(97, 129):
+        for r in range(1, 9):
+            rng = np.random.default_rng(10 * n + r + 7 * b)
+            x = rng.standard_normal((b, n, n)) + 1j * rng.standard_normal((b, n, n))
+            gram = x @ np.conj(np.swapaxes(x, 1, 2)) + (n / 100.0) * np.eye(n)
+            gram = np.ascontiguousarray(0.5 * (gram + np.conj(np.swapaxes(gram, 1, 2))),
+                                        np.complex64)
+            rhs = (rng.standard_normal((b, n, r)) + 1j * rng.standard_normal((b, n, r)))
+            g, h = torch.from_numpy(gram).to(card), torch.from_numpy(rhs.astype(np.complex64)).to(card)
+            err = _rel(hpd_mod.hpd_solve(g, h).cpu(), hpd_mod.hpd_solve_plain(g, h).cpu())
+            assert err < 1e-4, (n, r, err)
+            worst = max(worst, err)
+    print(f"worst relative error {worst:.3e}")
 
 
 @pytest.mark.cuda

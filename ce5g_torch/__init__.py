@@ -3,7 +3,8 @@
 Simulates 3GPP EPA/EVA/ETU Jakes-fading MIMO-OFDM frames and estimates
 the channel with LS, diagonal MMSE and the full Wiener MMSE, on an NVIDIA
 H100, with hand-written CUDA kernels (``csrc/``) where the JAX package has
-Pallas kernels. ``ce5g_tpu`` stays the reference the port is tested
+Pallas kernels; serves the JAX package's trained estimators (``models``,
+``train.checkpoint``, ``eval.evaluate``). ``ce5g_tpu`` stays the reference the port is tested
 against; this package imports neither JAX nor ``ce5g_tpu``.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise without a

@@ -14,7 +14,9 @@ def resolve_device(device="cuda") -> torch.device:
     is present. On CUDA it also pins float32 matmuls to full precision:
     the Woodbury solve in ``estimators.mmse`` relies on an exact
     cancellation, (h − Φ·sol)/σ², which TF32's 10-bit mantissa destroys
-    (the JAX package saw +5 dB NMSE without full precision)."""
+    (the JAX package saw +5 dB NMSE without full precision). cuDNN's
+    convolutions and LSTMs are kept in full float32 too: the models run at
+    the JAX package's default float32 until TF32 or bf16 is measured."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -22,5 +24,6 @@ def resolve_device(device="cuda") -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU"
             )
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
     return dev

@@ -41,8 +41,9 @@ from .ls import ls_at_pilots, masked_ls_grid
 
 def bessel_j0(x: torch.Tensor) -> torch.Tensor:
     """J0 via the Abramowitz & Stegun 9.4.1 / 9.4.3 rational approximations
-    (|err| < 1e-7), branch-free, valid for all real x."""
-    x = x.to(torch.float32).abs()
+    (|err| < 1e-7), branch-free, valid for all real x; float32, or float64
+    for a float64 x."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32)).abs()
     # |x| <= 3
     t = (x / 3.0) ** 2
     small = (
@@ -212,37 +213,41 @@ def mmse_full_estimate(
             are per-frame contractions with ``freq_matrix`` (:369-376).
 
     Returns:
-        (B, S, R, T, K) complex64, identical along T (the superposition
-        observation cannot separate TX antennas).
+        (B, S, R, T, K) complex, identical along T (the superposition
+        observation cannot separate TX antennas). complex64 for complex64
+        inputs; complex128 inputs (with float64 ``amp`` and complex128
+        ``freq_matrix``, ``f_tables=None``) run the same path in float64,
+        the reference that the card's float32 result is held to.
     """
     dev = rx_symbols.device
-    m = pilot_mask.to(torch.float32)  # (B, S, K)
+    real = rx_symbols.real.dtype
+    m = pilot_mask.to(real)  # (B, S, K)
     b, s, k = m.shape
     g = masked_ls_grid(rx_symbols, tx_grid, m)  # (B, R, S, K)
     r_rx = g.shape[1]
 
     n_paths = amp.shape[-1]
-    w_path = 0.5 * amp.to(torch.float32) ** 2  # (B, P); Jakes E|h|² = ½
+    w_path = 0.5 * amp.to(real) ** 2  # (B, P); Jakes E|h|² = ½
     sw = torch.sqrt(w_path)
     t_scale = float(num_tx)
 
     # Time prior factor V with V·Vᵀ ≈ R_t = J0(2π fd Δs T_sym), ridge scaled
     # to the trace so it stays positive definite in float32.
-    fd = torch.as_tensor(doppler_hz, dtype=torch.float32, device=dev)
-    ds = torch.arange(s, dtype=torch.float32, device=dev)
+    fd = torch.as_tensor(doppler_hz, dtype=real, device=dev)
+    ds = torch.arange(s, dtype=real, device=dev)
     rt = bessel_j0(
         (2.0 * math.pi * fd)[:, None, None] * (ds[:, None] - ds[None, :]) * symbol_duration
     )  # (B, S, S)
     if time_rank is not None and time_rank < s:
-        q = _legendre_basis(s, time_rank, dev)  # (S, m) static
+        q = _legendre_basis(s, time_rank, dev).to(real)  # (S, m) static
         bm = q.T @ (rt @ q)  # (B, m, m)
         ridge = 1e-4 * (bm.diagonal(dim1=-2, dim2=-1).sum(-1) / time_rank) + 1e-6
-        eye = torch.eye(time_rank, device=dev)
+        eye = torch.eye(time_rank, dtype=real, device=dev)
         chol_b = torch.linalg.cholesky(bm + ridge[:, None, None] * eye)
         v = q @ chol_b  # (B, S, m)
     else:
         ridge = 1e-4 * (rt.diagonal(dim1=-2, dim2=-1).sum(-1) / s) + 1e-6
-        v = torch.linalg.cholesky(rt + ridge[:, None, None] * torch.eye(s, device=dev))
+        v = torch.linalg.cholesky(rt + ridge[:, None, None] * torch.eye(s, dtype=real, device=dev))
 
     f = freq_matrix  # (B, P, K) complex
     if f_tables is not None and profile_idx is not None:
@@ -258,7 +263,7 @@ def mmse_full_estimate(
         fc = f.conj()
         e = torch.einsum("brsk,bpk->brsp", g, fc)
         a = fc[:, :, None, :] * f[:, None, :, :]  # (B, P, P, K)
-        d = torch.einsum("bsk,bpqk->bspq", m.to(torch.complex64), a)
+        d = torch.einsum("bsk,bpqk->bspq", m.to(g.dtype), a)
 
     # gram[(p,m),(q,n)] = T·√(w_p w_q)·Σ_s V[s,m]V[s,n]·D[s,p,q]
     mt = v.shape[-1]
@@ -271,7 +276,7 @@ def mmse_full_estimate(
     gram = gram.reshape(b, r_dim, r_dim)
 
     p_ch = w_path.sum(-1)
-    snr = torch.as_tensor(snr_db, dtype=torch.float32, device=dev)
+    snr = torch.as_tensor(snr_db, dtype=real, device=dev)
     snr_lin = 10.0 ** (snr / 10.0)
     sigma2 = (num_tx * p_ch / snr_lin).clamp(min=1e-8)  # (B,)
     gram = gram + sigma2[:, None, None] * torch.eye(r_dim, dtype=gram.dtype, device=dev)

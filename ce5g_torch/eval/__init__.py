@@ -1,2 +1,3 @@
-"""Evaluation studies of the port: the Phase-2 classical-estimator parity
-study (``parity``)."""
+"""Evaluation of the port: the Phase-2 classical-estimator parity study
+(``parity``) and the test-split evaluation of the classical and neural
+estimators (``evaluate``)."""

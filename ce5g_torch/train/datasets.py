@@ -1,0 +1,113 @@
+"""A generated split in host memory, batched into the models' inputs.
+
+Port of ``ce5g_tpu.train.datasets.ChannelDataset`` (reference
+src/train.py:22-94, run_phase4_training.py:33-112): an npz file or a
+manifest of npz chunks, GLOBAL normalisation stats over the first antenna
+pair (std of the complex magnitude, run_phase4_training.py:62-71), and
+NHWC numpy batches that the caller moves to its device. ``DeviceDataset``
+comes with the training slice, the Wiener sidecar manifests with the
+dataset-factory slice.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+
+from ..data.generator import read_split
+from ..models.inputs import MLBatch
+from ..physics.profiles import PROFILE_NAMES
+
+
+class ChannelDataset:
+    """In-memory dataset over a merged npz file or manifest-described npz
+    chunks."""
+
+    def __init__(self, path, normalize: bool = True, wiener: bool = False):
+        """``wiener`` emits 7-channel inputs [rx_re, rx_im, ls_re, ls_im,
+        mask, wiener_re, wiener_im] for the residual-on-Wiener models
+        (``models.inputs.apply_output_residual``); the split's arrays must
+        carry ``H_wiener`` (S, K) per frame."""
+        p = Path(path)
+        self.arrays = read_split(p)
+        self.wiener = bool(wiener)
+        if wiener and "H_wiener" not in self.arrays:
+            raise NotImplementedError(
+                f"{p} carries no H_wiener array; Wiener sidecar manifests come "
+                "with the dataset-factory slice of the port"
+            )
+        self.normalize = normalize
+        self.stats = self._compute_stats() if normalize else None
+
+    def _compute_stats(self) -> Dict[str, float]:
+        """Global magnitude-std stats over the first antenna pair
+        (reference run_phase4_training.py:62-71)."""
+        rx = self.arrays["rx_symbols"][:, :, 0, :]
+        hls = self.arrays["H_ls"][:, :, 0, 0, :]
+        ht = self.arrays["H_true"][:, :, 0, 0, :]
+        return {
+            "rx_std": float(np.std(np.abs(rx)) + 1e-8),
+            "hls_std": float(np.std(np.abs(hls)) + 1e-8),
+            "h_std": float(np.std(np.abs(ht)) + 1e-8),
+        }
+
+    def __len__(self) -> int:
+        return self.arrays["rx_symbols"].shape[0]
+
+    @property
+    def grid_shape(self) -> Tuple[int, int]:
+        _, s, _, k = self.arrays["rx_symbols"].shape
+        return s, k
+
+    def make_batch(self, idx: np.ndarray) -> MLBatch:
+        """A normalised 5- (or 7-) channel numpy batch of the given samples."""
+        rx = self.arrays["rx_symbols"][idx][:, :, 0, :]
+        hls = self.arrays["H_ls"][idx][:, :, 0, 0, :]
+        ht = self.arrays["H_true"][idx][:, :, 0, 0, :]
+        mask = self.arrays["pilot_mask"][idx].astype(np.float32)
+        st = self.stats or {"rx_std": 1.0, "hls_std": 1.0, "h_std": 1.0}
+        chans = [
+            rx.real / st["rx_std"],
+            rx.imag / st["rx_std"],
+            hls.real / st["hls_std"],
+            hls.imag / st["hls_std"],
+            mask,
+        ]
+        if self.wiener:
+            # normalised like the TARGET, so the residual head's sum
+            # (pred + wiener) lives on the target's scale
+            hw = self.arrays["H_wiener"][idx]
+            chans += [hw.real / st["h_std"], hw.imag / st["h_std"]]
+        inputs = np.stack(chans, axis=-1).astype(np.float32)
+        targets = np.stack(
+            [ht.real / st["h_std"], ht.imag / st["h_std"]], axis=-1
+        ).astype(np.float32)
+        return MLBatch(inputs, targets, mask, st)
+
+    def batches(
+        self,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_remainder: bool = True,
+    ) -> Iterator[MLBatch]:
+        n = len(self)
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        stop = (n // batch_size) * batch_size if drop_remainder else n
+        for i in range(0, stop, batch_size):
+            yield self.make_batch(order[i : i + batch_size])
+
+    def metadata_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """Per-sample SNR, profile name, Doppler and pilot density. Chunk
+        files store the profile as ``profile_idx`` and merged files as
+        ``channel_type`` names; both give names here (the JAX package's
+        version reads ``channel_type`` only and fails on chunks)."""
+        out = {k: self.arrays[k][idx] for k in ("snr_db", "doppler_hz", "pilot_density")}
+        if "channel_type" in self.arrays:
+            out["channel_type"] = self.arrays["channel_type"][idx]
+        else:
+            out["channel_type"] = np.asarray(PROFILE_NAMES)[self.arrays["profile_idx"][idx]]
+        return out

@@ -11,6 +11,11 @@ import torch
 _EPS = 1e-12
 
 
+def db2linear(db):
+    """10^(x/10) (reference: src/utils.py:39-41)."""
+    return 10.0 ** (torch.as_tensor(db) / 10.0)
+
+
 def linear2db(x):
     """10·log10(x + 1e-12) (reference: src/utils.py:44-46)."""
     return 10.0 * torch.log10(torch.as_tensor(x) + _EPS)
@@ -31,3 +36,13 @@ def nmse(h_true, h_est, axes: Optional[Sequence[int]] = None):
 
 def nmse_db(h_true, h_est, axes: Optional[Sequence[int]] = None):
     return linear2db(nmse(h_true, h_est, axes))
+
+
+def ber_approximation(snr_db, nmse_linear):
+    """Analytic BER proxy of the reference evaluation
+    (run_phase5_evaluation.py:57-68): the effective SNR degraded by the
+    channel-estimation error, then ½·exp(−SNR_eff/2), clipped to
+    [1e-6, 0.5]."""
+    snr_lin = db2linear(snr_db)
+    eff = snr_lin / (1.0 + snr_lin * torch.as_tensor(nmse_linear))
+    return torch.clamp(0.5 * torch.exp(-eff / 2.0), 1e-6, 0.5)

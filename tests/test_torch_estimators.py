@@ -248,3 +248,22 @@ def test_estimator_rules(small_cfg, small_frames):
         estimate_batch(tf, cfg=cfg, estimator="ls", method="spline", device="cpu")
     with pytest.raises(ValueError):
         estimate_batch(tf, cfg=cfg, estimator="zf", device="cpu")
+
+
+def test_mmse_full_float64_reference(small_cfg, small_frames):
+    """The float64 run of the plain mmse_full path that chip_smoke.py holds
+    the card's result to: complex128, and within the float32 bound of both
+    packages' float32 results."""
+    import chip_smoke
+
+    jf, tf = small_frames
+    cfg = port_cfg(small_cfg)
+    h64 = chip_smoke.mmse_full_float64(cfg, tf)
+    assert h64.dtype == torch.complex128
+    h32 = estimate_batch(tf, cfg=cfg, estimator="mmse_full", device="cpu")
+    ref = _j_estimate(small_cfg, jf, "mmse_full")
+    h = np.asarray(jf.channel)
+    rms = np.sqrt(np.mean(np.abs(h) ** 2, axis=(1, 2, 3, 4)))
+    for got in (h32.numpy(), ref):
+        err = np.max(np.abs(got - h64.numpy()), axis=(1, 2, 3, 4))
+        assert np.all(err <= 1e-3 * rms), err / rms

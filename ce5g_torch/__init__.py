@@ -1,11 +1,13 @@
 """ce5g_torch — the PyTorch/CUDA port of ``ce5g_tpu``.
 
 Simulates 3GPP EPA/EVA/ETU Jakes-fading MIMO-OFDM frames and estimates
-the channel with LS, diagonal MMSE and the full Wiener MMSE, on an NVIDIA
-H100, with hand-written CUDA kernels (``csrc/``) where the JAX package has
-Pallas kernels; serves the JAX package's trained estimators (``models``,
-``train.checkpoint``, ``eval.evaluate``). ``ce5g_tpu`` stays the reference the port is tested
-against; this package imports neither JAX nor ``ce5g_tpu``.
+the channel with LS, diagonal MMSE and the full Wiener MMSE (with true
+priors, or blind: ``estimators.blind``), on an NVIDIA H100, with
+hand-written CUDA kernels (``csrc/``) where the JAX package has Pallas
+kernels; trains (``train.Trainer``) and serves (``models``,
+``train.checkpoint``, ``eval.evaluate``) the learned estimators.
+``ce5g_tpu`` stays the reference the port is tested against; this package
+imports neither JAX nor ``ce5g_tpu``.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise without a
 card unless the caller passes ``device="cpu"``.

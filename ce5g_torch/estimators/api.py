@@ -15,6 +15,7 @@ from ..config import ExperimentConfig
 from ..device import resolve_device
 from ..physics.profiles import ProfileTable, cached
 from ..physics.simulate import Frame, FrameParams, table_for, table_tensors
+from .blind import device_tables_for, estimate_priors
 from .ls import ls_estimate
 from .mmse import build_f_tables, mmse_diag_estimate, mmse_full_estimate
 
@@ -79,7 +80,10 @@ def estimate_batch(
     Args:
         frames: batched :class:`Frame` (moved to ``device``).
         estimator: 'ls' | 'mmse' (reference-parity diagonal) | 'mmse_full'
-            (per-subcarrier Wiener with correlation priors).
+            (per-subcarrier Wiener with correlation priors) |
+            'mmse_full_est' (the same Wiener, with every prior — SNR,
+            Doppler, delay profile — estimated from the frame's own pilots
+            by :mod:`.blind`; ``frames.params`` is never read).
         method: interpolation for 'ls'/'mmse': 'nearest' or 'linear' (grid
             form, with the frames' pilot mask) or 'cubic' (slot form).
         time_rank: mmse_full time-prior rank — "auto" (sized from the max
@@ -104,10 +108,29 @@ def estimate_batch(
     if estimator == "mmse":
         return mmse_diag_estimate(frames.rx_symbols, tx_grid, *slots, frames.params.snr_db,
                                   method, pilot_mask=frames.pilot_mask)
+    rank = auto_time_rank(cfg) if time_rank == "auto" else time_rank
     if estimator == "mmse_full_est":
-        raise NotImplementedError(
-            "estimator='mmse_full_est' needs the blind prior estimator "
-            "(estimators/blind.py), which comes with a later slice of the port"
+        # The deployable estimator: the delay prior is the union dictionary
+        # with per-frame blended tap powers (never zeroing a candidate tap),
+        # and σ̂² enters through the snr_db ↔ p_ch mapping, so mmse_full
+        # reproduces the estimated noise variance exactly.
+        tables = device_tables_for(cfg, table, dev)
+        pri = estimate_priors(frames.rx_symbols, tx_grid, frames.pilot_mask, tables, num_tx)
+        amp = torch.sqrt(2.0 * pri.w_tap)  # mmse_full folds w = ½·amp²
+        p_ch = pri.w_tap.sum(-1)
+        snr_db = 10.0 * torch.log10((num_tx * p_ch / pri.sigma2).clamp(min=1e-12))
+        b = amp.shape[0]
+        return mmse_full_estimate(
+            frames.rx_symbols,
+            tx_grid,
+            frames.pilot_mask,
+            num_tx,
+            snr_db,
+            tables.f_dict.expand(b, *tables.f_dict.shape),
+            amp,
+            pri.doppler_hz,
+            cfg.ofdm.symbol_duration,
+            time_rank=rank,
         )
     if estimator == "mmse_full":
         amp_t, f_t = table_tensors(table, cfg, dev)
@@ -125,7 +148,7 @@ def estimate_batch(
             amp_t[pidx],
             frames.params.doppler_hz,
             cfg.ofdm.symbol_duration,
-            time_rank=auto_time_rank(cfg) if time_rank == "auto" else time_rank,
+            time_rank=rank,
             f_tables=f_tables,
             profile_idx=pidx,
         )

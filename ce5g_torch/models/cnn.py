@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -29,16 +30,43 @@ def to_channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nnx.BatchNorm`` on (B, C, S, K): ε 1e-5, and in train mode
+    running statistics that move as flax's do. flax keeps momentum 0.99
+    (0.01 in torch's terms) and averages the *biased* batch variance,
+    where torch averages the unbiased one. The statistics are float32
+    under a half compute dtype, as flax's reductions are. Eval mode, and
+    the buffer names that ``convert`` maps to flax's scale/bias/mean/var,
+    are torch's."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 leaves the batch's own mean and unbiased variance in
+        # the scratch buffers, from the same fused pass that normalises
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
 class ConvBlock(nn.Module):
     """conv → batchnorm → relu → channel dropout, on (B, C, S, K).
 
-    ``"SAME"`` padding of an odd kernel is symmetric; BatchNorm's ε is
-    flax's 1e-5 (the same as torch's)."""
+    ``"SAME"`` padding of an odd kernel is symmetric."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, dropout: float):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, kernel, padding=kernel // 2)
-        self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
+        self.bn = BatchNorm(c_out)
         self.drop = nn.Dropout2d(dropout)  # reference nn.Dropout2d (ai_models.py:54)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

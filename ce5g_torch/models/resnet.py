@@ -8,16 +8,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .cnn import computing_in, to_channels_first
+from .cnn import BatchNorm, computing_in, to_channels_first
 
 
 class ResidualBlock(nn.Module):
     def __init__(self, channels: int, dropout: float):
         super().__init__()
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
-        self.bn1 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn1 = BatchNorm(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn2 = BatchNorm(channels)
         self.drop = nn.Dropout2d(dropout)  # reference nn.Dropout2d (ai_models.py:238)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +41,7 @@ class ResNetChannelEstimator(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.stem = nn.Conv2d(in_channels, base_channels, 7, padding=3)
-        self.stem_bn = nn.BatchNorm2d(base_channels, eps=1e-5)
+        self.stem_bn = BatchNorm(base_channels)
         self.blocks = nn.ModuleList(
             ResidualBlock(base_channels, dropout) for _ in range(num_blocks)
         )

@@ -4,9 +4,13 @@ Port of ``ce5g_tpu.train.datasets.ChannelDataset`` (reference
 src/train.py:22-94, run_phase4_training.py:33-112): an npz file or a
 manifest of npz chunks, GLOBAL normalisation stats over the first antenna
 pair (std of the complex magnitude, run_phase4_training.py:62-71), and
-NHWC numpy batches that the caller moves to its device. ``DeviceDataset``
-comes with the training slice, the Wiener sidecar manifests with the
-dataset-factory slice.
+NHWC numpy batches that the caller moves to its device; and
+``DeviceDataset``, a whole split resident on the card as NHWC tensors.
+
+The JAX package joins a Wiener feature from sidecar manifests. Until the
+port's dataset factory brings those, a split carries the feature as an
+array named after its tag: ``H_wiener`` (oracle priors, ``mmse_full``) or
+``H_bwiener`` (blind priors, ``mmse_full_est``), each (S, K) a frame.
 """
 from __future__ import annotations
 
@@ -14,29 +18,42 @@ from pathlib import Path
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+import torch
 
 from ..data.generator import read_split
+from ..device import resolve_device
 from ..models.inputs import MLBatch
 from ..physics.profiles import PROFILE_NAMES
+
+#: the array that carries each Wiener tag's feature
+WIENER_ARRAYS = {"wiener": "H_wiener", "bwiener": "H_bwiener"}
 
 
 class ChannelDataset:
     """In-memory dataset over a merged npz file or manifest-described npz
     chunks."""
 
-    def __init__(self, path, normalize: bool = True, wiener: bool = False):
+    def __init__(self, path, normalize: bool = True, wiener: "bool | str" = False):
         """``wiener`` emits 7-channel inputs [rx_re, rx_im, ls_re, ls_im,
         mask, wiener_re, wiener_im] for the residual-on-Wiener models
-        (``models.inputs.apply_output_residual``); the split's arrays must
-        carry ``H_wiener`` (S, K) per frame."""
+        (``models.inputs.apply_output_residual``). ``True`` or ``"wiener"``
+        reads the oracle-prior feature ``H_wiener``, ``"bwiener"`` the
+        blind-prior ``H_bwiener``; the split must carry it, (S, K) a frame."""
         p = Path(path)
         self.arrays = read_split(p)
         self.wiener = bool(wiener)
-        if wiener and "H_wiener" not in self.arrays:
-            raise NotImplementedError(
-                f"{p} carries no H_wiener array; Wiener sidecar manifests come "
-                "with the dataset-factory slice of the port"
-            )
+        if wiener:
+            tag = "wiener" if wiener is True else str(wiener)
+            if tag not in WIENER_ARRAYS:
+                raise ValueError(f"unknown wiener tag {wiener!r}; choose from "
+                                 f"{sorted(WIENER_ARRAYS)}")
+            name = WIENER_ARRAYS[tag]
+            if name not in self.arrays:
+                raise NotImplementedError(
+                    f"{p} carries no {name} array; Wiener sidecar manifests come "
+                    "with the dataset-factory slice of the port"
+                )
+            self.wiener_array = name
         self.normalize = normalize
         self.stats = self._compute_stats() if normalize else None
 
@@ -77,7 +94,7 @@ class ChannelDataset:
         if self.wiener:
             # normalised like the TARGET, so the residual head's sum
             # (pred + wiener) lives on the target's scale
-            hw = self.arrays["H_wiener"][idx]
+            hw = self.arrays[self.wiener_array][idx]
             chans += [hw.real / st["h_std"], hw.imag / st["h_std"]]
         inputs = np.stack(chans, axis=-1).astype(np.float32)
         targets = np.stack(
@@ -111,3 +128,35 @@ class ChannelDataset:
         else:
             out["channel_type"] = np.asarray(PROFILE_NAMES)[self.arrays["profile_idx"][idx]]
         return out
+
+
+class DeviceDataset:
+    """A whole split resident on ``device`` as NHWC float32 tensors:
+    ``inputs`` (N, S, K, 5 or 7) and ``targets`` (N, S, K, 2), built on
+    the host in chunks of ``build_chunk`` frames through
+    ``ChannelDataset.make_batch`` (port of the JAX package's
+    ``DeviceDataset``). A trainer gathers its batches on the card by index,
+    so no step moves data from the host. The pilot mask is channel 4 of
+    ``inputs``; consumers slice ``inputs[..., 4]``."""
+
+    def __init__(self, ds: ChannelDataset, build_chunk: int = 1024, device="cuda"):
+        dev = resolve_device(device)
+        n = len(ds)
+        s, k = ds.grid_shape
+        c_in = 7 if ds.wiener else 5
+        self.inputs = torch.empty((n, s, k, c_in), dtype=torch.float32, device=dev)
+        self.targets = torch.empty((n, s, k, 2), dtype=torch.float32, device=dev)
+        for start in range(0, n, build_chunk):
+            idx = np.arange(start, min(start + build_chunk, n))
+            b = ds.make_batch(idx)
+            self.inputs[start:start + len(idx)] = torch.from_numpy(b.inputs)
+            self.targets[start:start + len(idx)] = torch.from_numpy(b.targets)
+        self.stats = ds.stats
+
+    def __len__(self) -> int:
+        return self.inputs.shape[0]
+
+    @property
+    def grid_shape(self) -> Tuple[int, int]:
+        _, s, k, _ = self.inputs.shape
+        return s, k

@@ -51,14 +51,32 @@ Phases, one line each; any failure exits non-zero:
      its plain version on the inputs the path gave it, every model's
      forward on the card against the CPU, and latency per sample;
  10. where a serving batch goes: a torch.profiler trace of three warm
-     evaluate_model batches of 'cnn' and of 'cnn_wiener'.
-Then the wall time, one JSON line of per-kernel numbers, and last the
-device line.
+     evaluate_model batches of 'cnn' and of 'cnn_wiener';
+ 11. blind serving on phase 9's split: the blind Wiener feature H_bwiener
+     (mmse_full_est on the frames rebuilt from the stored arrays, as the
+     JAX package's sidecar was made), evaluate_estimators('mmse_full_est')
+     and the models_simo cnn_wiener_blind and cnn_wiener_blind_online
+     served from ChannelDataset(wiener='bwiener'), each held to the JAX
+     package's result, the ordering mmse_full < cnn_wiener_blind* <
+     mmse_full_est, the blind priors against the split's true parameters,
+     hpd_solve at n = 75 against its plain version and timed, and the
+     blind fit timed at 64 frames;
+ 12. training: a 10 000 + 1000-frame SIMO split made on the card
+     (draw_params → draw_frames → generate_chunk, npz chunks and a
+     manifest), the cnn trained 3 epochs with the JAX run's settings from
+     a device-resident split, its validation losses held to
+     models_simo/cnn_history.json, ms a step in bf16 and float32, a
+     torch.profiler trace of three warm steps, and the _best checkpoint
+     served on phase 9's split.
+Each phase prints its wall time. Then the wall time, one JSON line of
+per-kernel numbers, and last the device line.
 
 Imports neither JAX nor ce5g_tpu. Needs a CUDA card: without one it exits
 non-zero and prints no result.
 """
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -124,6 +142,21 @@ SERVING_ANCHORS_DB = {"cnn": -9.64, "resnet": -10.94, "hybrid": -9.22, "transfor
                       "cnn_wiener": -16.06, "mmse_full": -16.26, "mmse": -6.56}
 SERVING_BAND_DB = 0.5
 MODEL_CHECK_TOL = 1e-4  # card vs CPU forward, max |diff| over the output rms
+# Phase 11, blind serving: the JAX package's mean NMSE dB on its SIMO test
+# split (results_simo/cnn_wiener_blind*_test_results.json; mmse_full_est
+# from results_simo/ORTHOGONAL_STUDY.md), held as phase 9's anchors are.
+BLIND_ANCHORS_DB = {"mmse_full_est": -13.16, "cnn_wiener_blind": -14.12,
+                    "cnn_wiener_blind_online": -14.31}
+BLIND_BATCH = 64  # the JAX package's sidecar batch (data/wiener.py)
+# Phase 12, training: the JAX package's SIMO cnn run (models_simo/
+# cnn_history.json), validation loss of epochs 1-3. Epochs 2 and 3 must each
+# lie within TRAIN_BAND of the JAX mean of those two epochs; the port draws
+# its own split from the same laws.
+JAX_CNN_VAL_LOSS = (0.5683314800262451, 0.3038650453090668, 0.31445953249931335)
+TRAIN_BAND = 0.25
+TRAIN_FRAMES, VAL_FRAMES = 10000, 1000
+TRAIN_SEED = 12
+TRAIN_EPOCHS = 3
 # configs/simo_identifiable.yaml as a literal (yaml is not promised on the
 # card's machine); tests/test_torch_serving.py holds it equal to the file.
 SIMO_CONFIG = {
@@ -843,35 +876,38 @@ def serving_path(dev, cfg, model_dir, workdir, frames, batch, model_batch, lstm_
     return ds, ev, results, walls
 
 
+def check_result(name, r, card, anchors):
+    """Print one evaluate_* result's mean NMSE with its σ; where
+    ``anchors`` has it, hold it to the JAX package's (SERVING_BAND_DB,
+    widened to 4σ of the mean where that is larger). Returns the mean dB."""
+    per_sample = r.get("per_sample_nmse", r.get("per_sample"))
+    fail_unless(r["num_samples"] == len(per_sample), f"{name} scored every frame it was given")
+    db, sigma = mean_db(per_sample)
+    line = (f"  {name}: {db:.4f} dB (σ of the mean {sigma:.4f} dB) over "
+            f"{r['num_samples']} frames, {r['latency_ms_per_sample']:.4f} ms/sample on {card}")
+    if "params" in r:
+        line += f", {r['params']} parameters"
+    if name not in anchors:
+        print(line + "; no anchor")
+        return db
+    anchor = anchors[name]
+    band = max(SERVING_BAND_DB, 4 * sigma)
+    print(line + f"; JAX package {anchor:+.2f} ± {band:.3f}"
+          + (" (band widened to 4σ)" if band > SERVING_BAND_DB else ""))
+    fail_unless(abs(db - anchor) <= band,
+                f"{name} NMSE {db:.3f} dB within {band:.3f} dB of {anchor} dB")
+    return db
+
+
 def check_serving(results, card):
     """Phase 9's checks: each anchored mean within its band of the JAX
-    package's (SERVING_BAND_DB, widened to 4σ of the mean where that is
-    larger), and cnn_wiener < transformer < resnet < cnn."""
-    db = {}
+    package's (``check_result``), and cnn_wiener < transformer < resnet <
+    cnn."""
     base = results["baselines"]
     print(f"  stored LS feature (evaluate_baselines): {base['LS']['nmse_db']:.4f} dB, simplified "
           f"MMSE {base['MMSE']['nmse_db']:.4f} dB over {base['num_samples']} frames")
-    for name, r in results.items():
-        if name == "baselines":
-            continue
-        per_sample = r.get("per_sample_nmse", r.get("per_sample"))
-        db[name], sigma = mean_db(per_sample)
-        line = (f"  {name}: {db[name]:.4f} dB (σ of the mean {sigma:.4f} dB) over "
-                f"{r['num_samples']} frames, {r['latency_ms_per_sample']:.4f} ms/sample on {card}")
-        if "params" in r:
-            line += f", {r['params']} parameters"
-        if name in SERVING_ANCHORS_DB:
-            anchor = SERVING_ANCHORS_DB[name]
-            band = max(SERVING_BAND_DB, 4 * sigma)
-            line += f"; JAX package {anchor:+.2f} ± {band:.3f}"
-            if band > SERVING_BAND_DB:
-                line += " (band widened to 4σ)"
-            print(line)
-            fail_unless(abs(db[name] - anchor) <= band,
-                        f"{name} NMSE {db[name]:.3f} dB within {band:.3f} dB of {anchor} dB")
-        else:
-            print(line + "; no anchor")
-        fail_unless(r["num_samples"] == len(per_sample), f"{name} scored every frame it was given")
+    db = {name: check_result(name, r, card, SERVING_ANCHORS_DB)
+          for name, r in results.items() if name != "baselines"}
     order = ("cnn_wiener", "transformer", "resnet", "cnn")
     fail_unless(all(db[a] < db[b] for a, b in zip(order, order[1:])),
                 "NMSE ordering cnn_wiener < transformer < resnet < cnn: "
@@ -946,8 +982,8 @@ def where_a_serving_batch_goes(ev, ds, model_batch, batches=3):
 
 def serving_phase(dev, card, workdir):
     """Phase 9 at full width, with its checks, its split and results in
-    ``workdir``; returns the kernels' launches on the path, the evaluator
-    and the dataset for phase 10."""
+    ``workdir``; returns the kernels' launches on the path, the evaluator,
+    the dataset and the results for phases 10-12."""
     import torch
     from ce5g_torch.config import config_from_dict
 
@@ -974,7 +1010,286 @@ def serving_phase(dev, card, workdir):
     hold_against_plain("serving path", cap.args)
     check_serving(results, card)
     models_card_vs_cpu(cfg, model_dir, ds, dev)
-    return launches, ev, ds
+    return launches, ev, ds, results
+
+
+def blind_feature(dev, cfg, arrays):
+    """H_bwiener of every frame of ``arrays``: mmse_full_est's estimate of
+    the first antenna pair on the frames rebuilt from the stored arrays, in
+    batches of BLIND_BATCH (the last realigned to end at the last frame,
+    so every batch has one shape), as the JAX package's sidecar was made."""
+    import numpy as np
+    from ce5g_torch.estimators import estimate_batch
+    from ce5g_torch.eval.evaluate import _frames_from_arrays
+
+    n = len(arrays["rx_symbols"])
+    out = np.empty((n,) + arrays["pilot_mask"].shape[1:], np.complex64)
+    for start in range(0, n, BLIND_BATCH):
+        idx = np.arange(start, min(start + BLIND_BATCH, n))
+        if len(idx) < BLIND_BATCH <= n:
+            idx = np.arange(n - BLIND_BATCH, n)
+        h = estimate_batch(_frames_from_arrays(arrays, idx, cfg, dev), cfg=cfg,
+                           estimator="mmse_full_est", device=dev)
+        out[idx] = h[:, :, 0, 0, :].cpu().numpy()
+    return out
+
+
+def blind_priors_accuracy(dev, cfg, arrays):
+    """The blind priors of every frame against the split's true parameters."""
+    import numpy as np
+    import torch
+    from ce5g_torch.estimators.blind import device_tables_for, estimate_priors
+    from ce5g_torch.eval.evaluate import _frames_from_arrays
+    from ce5g_torch.physics.simulate import table_for
+
+    tables = device_tables_for(cfg, table_for(cfg), dev)
+    n = len(arrays["rx_symbols"])
+    got = {"profile_idx": [], "doppler_hz": [], "snr_db": []}
+    for start in range(0, n, BLIND_BATCH):
+        f = _frames_from_arrays(arrays, np.arange(start, min(start + BLIND_BATCH, n)), cfg, dev)
+        pri = estimate_priors(f.rx_symbols, f.tx_symbols[:, :, 0, :], f.pilot_mask, tables,
+                              cfg.mimo.num_tx)
+        for k in got:
+            got[k].append(getattr(pri, k).cpu())
+    got = {k: torch.cat(v).numpy() for k, v in got.items()}
+    fail_unless(all(np.isfinite(v).all() for v in got.values()), "blind priors finite")
+    hit = float((got["profile_idx"] == arrays["profile_idx"]).mean())
+    fd_err = np.abs(got["doppler_hz"] - arrays["doppler_hz"])
+    snr_err = np.abs(got["snr_db"] - arrays["snr_db"])
+    print(f"  blind priors against the split's truth over {n} frames: profile hit rate "
+          f"{hit:.4f}, median |Doppler error| {np.median(fd_err):.3f} Hz, SNR error mean "
+          f"{snr_err.mean():.4f} dB, max {snr_err.max():.4f} dB")
+
+
+def blind_timings(dev, cfg, arrays, card):
+    """estimate_priors a frame at BLIND_BATCH frames, where its device
+    time goes (a torch.profiler trace of one warm call), and its ridge
+    solve alone (the library Cholesky and solve of ``estimators.blind``)
+    beside ``torch.linalg.solve`` of the same systems."""
+    import numpy as np
+    import torch
+    import ce5g_torch.estimators.blind as blind_mod
+    from ce5g_torch.eval.evaluate import _frames_from_arrays
+    from ce5g_torch.physics.simulate import table_for
+
+    tables = blind_mod.device_tables_for(cfg, table_for(cfg), dev)
+    f = _frames_from_arrays(arrays, np.arange(BLIND_BATCH), cfg, dev)
+    args = (f.rx_symbols, f.tx_symbols[:, :, 0, :], f.pilot_mask, tables, cfg.mimo.num_tx)
+    seen = []
+    real = blind_mod.ridge_solve
+
+    def recording(gram, rhs):
+        seen.append((gram, rhs))
+        return real(gram, rhs)
+
+    blind_mod.ridge_solve = recording
+    try:
+        blind_mod.estimate_priors(*args)
+    finally:
+        blind_mod.ridge_solve = real
+    gram, rhs = seen[0]
+    priors_ms = cuda_ms(lambda: blind_mod.estimate_priors(*args))
+    ridge_ms = cuda_ms(lambda: blind_mod.ridge_solve(gram, rhs))
+    lib_ms = cuda_ms(lambda: torch.linalg.solve(gram, rhs))
+    print(f"  blind fit at {BLIND_BATCH} frames on {card}: estimate_priors {priors_ms[0]:.4f} ms "
+          f"({priors_ms[0] / BLIND_BATCH:.5f} ms a frame); its ridge solve "
+          f"{tuple(gram.shape)} x {rhs.shape[-1]} (Cholesky + cholesky_solve) {ridge_ms[0]:.4f} ms, "
+          f"torch.linalg.solve of the same {lib_ms[0]:.4f} ms")
+    ops, busy, window = device_trace(lambda: blind_mod.estimate_priors(*args), 1,
+                                     "estimate_priors")
+    print(f"where estimate_priors goes ({BLIND_BATCH} frames, one warm call): window "
+          f"{window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1.0 - busy / window:.3f}; {len(ops)} device operations")
+    print_top_ops(ops, 1)
+
+
+def blind_phase(dev, card, workdir, cfg, ds, ev, serving_results):
+    """Phase 11: the blind serving path on phase 9's split, with the
+    launch counters read around it. Returns the launches and the
+    hpd_solve row at n = 75."""
+    import numpy as np
+    import torch
+    from ce5g_torch.eval.evaluate import evaluate_estimators
+    from ce5g_torch.ops import hpd_solve as hpd_mod
+    from ce5g_torch.train import ChannelDataset
+
+    t_phase = time.perf_counter()
+    arrays = dict(ds.arrays)
+    walls = {}
+    with capturing() as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launches()
+        arrays["H_bwiener"] = blind_feature(dev, cfg, arrays)
+        path = os.path.join(workdir, "test_blind.npz")
+        np.savez(path, **arrays)
+        del arrays["H_bwiener"]
+        ds_b = ChannelDataset(path, wiener="bwiener")
+        walls["feature"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        results = evaluate_estimators(ds_b, cfg, ("mmse_full_est",), batch_size=BLIND_BATCH,
+                                      device=dev)
+        walls["mmse_full_est"] = time.perf_counter() - t1
+        for name in ("cnn_wiener_blind", "cnn_wiener_blind_online"):
+            t1 = time.perf_counter()
+            results[name] = ev.evaluate_model(name, ds_b, batch_size=MODEL_BATCH)
+            walls[name] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wall_s = time.perf_counter() - t0
+    print(f"blind serving path ({SERVING_FRAMES} frames of phase 9's split, estimator batches of "
+          f"{BLIND_BATCH}) in {wall_s:.2f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    print("kernels launched on the blind path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    fail_unless(launches["hpd_solve"] > 0, f"hpd_solve launched on the blind path: {launches}")
+    gram, rhs = cap.args["hpd_solve"]
+    fail_unless(tuple(gram.shape) == (BLIND_BATCH, 75, 75) and rhs.shape[-1] == 2,
+                f"the blind path's Woodbury system is ({BLIND_BATCH}, 75, 75) x 2: "
+                f"{tuple(gram.shape)} x {rhs.shape[-1]}")
+    errs = hold_against_plain("blind path", cap.args)
+    fail_unless(all(results[name]["num_samples"] == SERVING_FRAMES for name in BLIND_ANCHORS_DB),
+                "the blind path scored every frame of the split")
+    db = {name: check_result(name, results[name], card, BLIND_ANCHORS_DB)
+          for name in BLIND_ANCHORS_DB}
+    full_db = mean_db(serving_results["mmse_full"]["per_sample"])[0]
+    for name in ("cnn_wiener_blind", "cnn_wiener_blind_online"):
+        fail_unless(full_db < db[name] < db["mmse_full_est"],
+                    f"mmse_full {full_db:.3f} < {name} {db[name]:.3f} < mmse_full_est "
+                    f"{db['mmse_full_est']:.3f} dB")
+    print(f"  ordering mmse_full ({full_db:.4f}) < cnn_wiener_blind*, < mmse_full_est, on the "
+          "same frames: ok")
+    blind_priors_accuracy(dev, cfg, ds.arrays)
+    b, n, r = rhs.shape
+    row = kernel_row("hpd_solve", "ce5g_torch/csrc/hpd_solve.cu",
+                     "ce5g_tpu/ops/hpd_solve_pallas.py:45", launches["hpd_solve"],
+                     errs["hpd_solve"], lambda: hpd_mod.hpd_solve(gram, rhs),
+                     lambda: hpd_mod.hpd_solve_plain(gram, rhs), hpd_mod.work(b, n, r),
+                     lambda: torch.linalg.solve(gram, rhs))
+    print(f"hpd_solve at the blind path's inputs {tuple(gram.shape)} x {r}: kernel "
+          f"{row['ms']:.4f} ms ({row['ms_min']:.4f}-{row['ms_max']:.4f} over 5 replays of a graph "
+          f"of 20), back-to-back calls {row['call_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), library "
+          f"{row['library_ms']:.4f} ms (torch.linalg.solve)")
+    blind_timings(dev, cfg, ds.arrays, card)
+    os.remove(path)
+    print(f"phase 11 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def training_split(dev, cfg, workdir):
+    """Phase 12's train and val splits, made on the card from TRAIN_SEED
+    (draw_params → draw_frames → generate_chunk in batches of BATCH) and
+    written as uncompressed npz chunks with a manifest each. Returns the
+    two manifest paths."""
+    import numpy as np
+    import torch
+    from ce5g_torch.data import draw_params, generate_chunk
+    from ce5g_torch.physics import draw_frames
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    manifests = []
+    for split, frames in (("train", TRAIN_FRAMES), ("val", VAL_FRAMES)):
+        files = []
+        for start in range(0, frames, BATCH):
+            n = min(BATCH, frames - start)
+            params = draw_params(cfg, n, gen, device=dev)
+            chunk = generate_chunk(cfg, params, draw_frames(gen, params, cfg, device=dev),
+                                   device=dev)
+            name = f"{split}_chunk_{start // BATCH:05d}.npz"
+            np.savez(os.path.join(workdir, name), **{k: v.cpu().numpy() for k, v in chunk.items()})
+            files.append(name)
+        path = os.path.join(workdir, f"{split}_manifest.json")
+        with open(path, "w") as fh:
+            json.dump({"split": split, "files": files}, fh)
+        manifests.append(path)
+    return manifests
+
+
+def training_phase(dev, card, test_ds):
+    """Phase 12: the cnn trained on the card as the JAX package's SIMO run
+    was, from a device-resident split, with the launch counters read
+    around the path (split, staging, training). Returns the launches."""
+    import torch
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.eval.evaluate import ModelEvaluator
+    from ce5g_torch.train import ChannelDataset, DeviceDataset, Trainer
+
+    t_phase = time.perf_counter()
+    cfg = config_from_dict(SIMO_CONFIG)
+    tr = cfg.training
+    fail_unless((tr.batch_size, tr.optimizer, tr.lr_scheduler, tr.epochs, tr.gradient_clip,
+                 tr.loss, tr.mixed_precision) == (64, "adam", "cosine", 100, 1.0, "mse", True),
+                "phase 12 trains with the JAX run's settings")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as workdir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launches()
+        train_path, val_path = training_split(dev, cfg, workdir)
+        t_made = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dd_train = DeviceDataset(ChannelDataset(train_path), device=dev)
+        dd_val = DeviceDataset(ChannelDataset(val_path), device=dev)
+        torch.cuda.synchronize()
+        t_staged = time.perf_counter() - t1
+        model_dir = os.path.join(workdir, "models")
+        trainer = Trainer(cfg, model_type="cnn", device=dev, log=lambda m: print("  " + m))
+        result = trainer.train(dd_train, dd_val, epochs=TRAIN_EPOCHS, model_dir=model_dir)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wall_s = time.perf_counter() - t0
+        print(f"training path in {wall_s:.2f} s: split of {TRAIN_FRAMES} + {VAL_FRAMES} frames "
+              f"made and written in {t_made:.2f} s, staged on the card in {t_staged:.2f} s "
+              f"({(dd_train.inputs.numel() + dd_train.targets.numel() + dd_val.inputs.numel() + dd_val.targets.numel()) * 4 / 2**30:.2f} GiB); "
+              f"epochs " + ", ".join(f"{t:.2f} s" for t in result["history"]["epoch_time"]))
+        print("kernels launched on the training path: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        fail_unless(launches["interp_fused"] > 0, f"interp_fused launched on the training path: "
+                    f"{launches}")
+        val = result["history"]["val_loss"]
+        ref = (JAX_CNN_VAL_LOSS[1] + JAX_CNN_VAL_LOSS[2]) / 2
+        print(f"  validation loss by epoch: " + ", ".join(f"{v:.4f}" for v in val)
+              + f"; JAX package " + ", ".join(f"{v:.4f}" for v in JAX_CNN_VAL_LOSS)
+              + f"; epochs 2-3 within ±{TRAIN_BAND:.0%} of {ref:.4f}")
+        fail_unless(len(val) == TRAIN_EPOCHS, f"{TRAIN_EPOCHS} epochs run")
+        for epoch in (1, 2):
+            fail_unless(abs(val[epoch] - ref) <= TRAIN_BAND * ref,
+                        f"epoch {epoch + 1} validation loss {val[epoch]:.4f} within "
+                        f"{TRAIN_BAND:.0%} of {ref:.4f}")
+        fail_unless(val[2] < val[0], "epoch 3 validation loss below epoch 1's")
+
+        # ms a step, bf16 (the config's) and float32, 20 steps each
+        bsz = tr.batch_size
+        batches = itertools.cycle(range(len(dd_train) // bsz))
+
+        def step():
+            i = next(batches)
+            x, y = dd_train.inputs[i * bsz:(i + 1) * bsz], dd_train.targets[i * bsz:(i + 1) * bsz]
+            return trainer._step(*trainer._layout(x, y))
+
+        trainer.model.train()
+        steps_ms = {}
+        for name, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+            trainer.model.dtype = dtype  # the compute dtype models.cnn.computing_in reads
+            steps_ms[name] = cuda_ms(step, rounds=1, iters=20)[0]
+        trainer.model.dtype = torch.bfloat16
+        print(f"  ms a training step at batch {bsz} on {card}: bf16 {steps_ms['bf16']:.3f}, "
+              f"float32 {steps_ms['float32']:.3f} (20 steps each)")
+        for _ in range(2):
+            step()
+        ops, busy, window = device_trace(step, 3, "training steps")
+        print(f"where a training step goes (3 warm bf16 steps of {bsz} frames): window "
+              f"{window / 3 / 1e3:.3f} ms a step, device busy {busy / 3 / 1e3:.3f} ms, idle share "
+              f"{1.0 - busy / window:.3f}; {len(ops) / 3:.1f} device operations a step")
+        print_top_ops(ops, 3)
+
+        ev = ModelEvaluator(cfg, model_dir, device=dev)
+        r = ev.evaluate_model("cnn", test_ds, batch_size=MODEL_BATCH)
+        trained_db, sigma = mean_db(r["per_sample_nmse"])
+        fail_unless(math.isfinite(trained_db), "the trained cnn's NMSE is finite")
+        print(f"  the trained cnn's _best (epoch {r['checkpoint_epoch'] + 1}) on phase 9's split: "
+              f"{trained_db:.4f} dB (σ of the mean {sigma:.4f} dB) over {r['num_samples']} frames; "
+              "no anchor")
+    print(f"phase 12 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -1097,14 +1412,21 @@ def main():
     print(f"parity study wall time ({PARITY_FRAMES} frames/cell, 17 cells, first run): "
           f"{parity_s:.3f} s")
     where_a_batch_goes(dev, gen, cfg, params, rates)
-    # the serving split (≈1.1 GB) is removed however phases 9-10 end
+    # the serving split (≈1.1 GB, twice in phase 11) is removed however
+    # phases 9-12 end
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as workdir:
-        serving_launches, ev, ds = serving_phase(dev, card, workdir)
+        t0 = time.perf_counter()
+        serving_launches, ev, ds, serving_results = serving_phase(dev, card, workdir)
         where_a_serving_batch_goes(ev, ds, MODEL_BATCH)
+        print(f"phases 9-10 wall time: {time.perf_counter() - t0:.1f} s")
+        blind_launches = blind_phase(dev, card, workdir, ev.cfg, ds, ev, serving_results)
+        training_launches = training_phase(dev, card, ds)
     for kern in kernels:
         kern["launches_by_path"] = {"main": launches[kern["name"]],
                                     "parity": parity_launches[kern["name"]],
-                                    "serving": serving_launches[kern["name"]]}
+                                    "serving": serving_launches[kern["name"]],
+                                    "blind": blind_launches[kern["name"]],
+                                    "training": training_launches[kern["name"]]}
     print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -182,8 +182,10 @@ def test_factory_rules(cfg, tmp_path):
     assert type(hybrid).__name__ == "HybridCNNLSTMEstimator"
     with pytest.raises(ValueError, match="Unknown model type"):
         get_model("mlp", mcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        save_checkpoint(tmp_path / "ck", hybrid, optimizer=object())
+    # a checkpoint without optimizer state cannot resume training
+    save_checkpoint(tmp_path / "ck", hybrid)
+    with pytest.raises(FileNotFoundError, match="opt_state.npz"):
+        load_checkpoint(tmp_path / "ck", hybrid, torch.optim.SGD(hybrid.parameters(), lr=0.1))
     # the same seed gives the same weights, and the global RNG is untouched
     state = torch.random.get_rng_state()
     a = model_state_to_numpy(get_model("cnn", mcfg, seed=11, device="cpu"))

@@ -4,8 +4,11 @@ Simulates 3GPP EPA/EVA/ETU Jakes-fading MIMO-OFDM frames and estimates
 the channel with LS, diagonal MMSE and the full Wiener MMSE (with true
 priors, or blind: ``estimators.blind``), on an NVIDIA H100, with
 hand-written CUDA kernels (``csrc/``) where the JAX package has Pallas
-kernels; trains (``train.Trainer``) and serves (``models``,
-``train.checkpoint``, ``eval.evaluate``) the learned estimators.
+kernels; writes and verifies datasets (``data``: chunk files, Wiener
+sidecars, digest manifests) and trains on frames that never leave the
+card (``data.online_train``); trains (``train.Trainer``) and serves
+(``models``, ``train.checkpoint``, ``eval.evaluate``) the learned
+estimators.
 ``ce5g_tpu`` stays the reference the port is tested against; this package
 imports neither JAX nor ``ce5g_tpu``.
 

@@ -1,59 +1,87 @@
 """A generated split in host memory, batched into the models' inputs.
 
 Port of ``ce5g_tpu.train.datasets.ChannelDataset`` (reference
-src/train.py:22-94, run_phase4_training.py:33-112): an npz file or a
-manifest of npz chunks, GLOBAL normalisation stats over the first antenna
-pair (std of the complex magnitude, run_phase4_training.py:62-71), and
-NHWC numpy batches that the caller moves to its device; and
-``DeviceDataset``, a whole split resident on the card as NHWC tensors.
-
-The JAX package joins a Wiener feature from sidecar manifests. Until the
-port's dataset factory brings those, a split carries the feature as an
-array named after its tag: ``H_wiener`` (oracle priors, ``mmse_full``) or
-``H_bwiener`` (blind priors, ``mmse_full_est``), each (S, K) a frame.
+src/train.py:22-94, run_phase4_training.py:33-112): a merged file or a
+manifest of chunks (npz, h5 or ``.ce5g``), GLOBAL normalisation stats over
+the first antenna pair (std of the complex magnitude,
+run_phase4_training.py:62-71), the Wiener feature joined from sidecar
+manifests (``data.wiener``), and NHWC numpy batches that the caller moves
+to its device; and ``DeviceDataset``, a whole split resident on the card
+as NHWC tensors.
 """
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
-from ..data.generator import read_split
+from ..data.generator import read_chunk
 from ..device import resolve_device
 from ..models.inputs import MLBatch
 from ..physics.profiles import PROFILE_NAMES
 
-#: the array that carries each Wiener tag's feature
-WIENER_ARRAYS = {"wiener": "H_wiener", "bwiener": "H_bwiener"}
-
 
 class ChannelDataset:
-    """In-memory dataset over a merged npz file or manifest-described npz
-    chunks."""
+    """In-memory dataset over a merged file or manifest-described chunks."""
 
     def __init__(self, path, normalize: bool = True, wiener: "bool | str" = False):
-        """``wiener`` emits 7-channel inputs [rx_re, rx_im, ls_re, ls_im,
-        mask, wiener_re, wiener_im] for the residual-on-Wiener models
-        (``models.inputs.apply_output_residual``). ``True`` or ``"wiener"``
-        reads the oracle-prior feature ``H_wiener``, ``"bwiener"`` the
-        blind-prior ``H_bwiener``; the split must carry it, (S, K) a frame."""
+        """``wiener`` joins a Wiener feature and emits 7-channel inputs
+        [rx_re, rx_im, ls_re, ls_im, mask, wiener_re, wiener_im] for the
+        residual-on-Wiener models (``models.inputs.apply_output_residual``).
+        An ``H_wiener`` array in the split wins for any tag; otherwise
+        ``True`` (or ``"wiener"``) loads the oracle-prior sidecar
+        (``<split>_wiener_manifest.json``) and ``"bwiener"`` the
+        blind-prior one, both written by ``data.wiener.compute_wiener_sidecar``.
+        Raises ``ValueError`` for a merged file without ``H_wiener``, a
+        sidecar computed from another split (fingerprint) or of another
+        length, and ``FileNotFoundError`` for a missing sidecar manifest."""
         p = Path(path)
-        self.arrays = read_split(p)
+        manifest = None
+        if p.suffix == ".json":
+            manifest = json.loads(p.read_text())
+            parts = [read_chunk(p.parent / f) for f in manifest["files"]]
+            self.arrays = {
+                k: np.concatenate([q[k] for q in parts], axis=0) for k in parts[0]
+            }
+        else:
+            self.arrays = read_chunk(p)
         self.wiener = bool(wiener)
-        if wiener:
+        if wiener and "H_wiener" not in self.arrays:
             tag = "wiener" if wiener is True else str(wiener)
-            if tag not in WIENER_ARRAYS:
-                raise ValueError(f"unknown wiener tag {wiener!r}; choose from "
-                                 f"{sorted(WIENER_ARRAYS)}")
-            name = WIENER_ARRAYS[tag]
-            if name not in self.arrays:
-                raise NotImplementedError(
-                    f"{p} carries no {name} array; Wiener sidecar manifests come "
-                    "with the dataset-factory slice of the port"
+            if manifest is None:
+                raise ValueError(
+                    "wiener sidecars require a manifest-backed split "
+                    f"(got {p}); pass the <split>_manifest.json path"
                 )
-            self.wiener_array = name
+            wp = p.parent / f"{p.name.replace('_manifest.json', '')}_{tag}_manifest.json"
+            if not wp.exists():
+                raise FileNotFoundError(
+                    f"wiener sidecar manifest {wp} not found — run "
+                    "data.wiener.compute_wiener_sidecar first"
+                )
+            wm = json.loads(wp.read_text())
+            src_fp = wm.get("source_fingerprint")
+            split_fp = manifest.get("fingerprint")
+            if src_fp is not None and split_fp is not None and src_fp != split_fp:
+                raise ValueError(
+                    f"wiener sidecar {wp.name} was computed from a dataset "
+                    f"with fingerprint {src_fp}, but this split's "
+                    f"fingerprint is {split_fp} — regenerate the sidecars "
+                    "(data.wiener.compute_wiener_sidecar)"
+                )
+            hw = np.concatenate(
+                [read_chunk(wp.parent / f)["H_wiener"] for f in wm["files"]],
+                axis=0,
+            )
+            if len(hw) != len(self.arrays["rx_symbols"]):
+                raise ValueError(
+                    f"wiener sidecar has {len(hw)} samples, dataset has "
+                    f"{len(self.arrays['rx_symbols'])}"
+                )
+            self.arrays["H_wiener"] = hw
         self.normalize = normalize
         self.stats = self._compute_stats() if normalize else None
 
@@ -94,7 +122,7 @@ class ChannelDataset:
         if self.wiener:
             # normalised like the TARGET, so the residual head's sum
             # (pred + wiener) lives on the target's scale
-            hw = self.arrays[self.wiener_array][idx]
+            hw = self.arrays["H_wiener"][idx]
             chans += [hw.real / st["h_std"], hw.imag / st["h_std"]]
         inputs = np.stack(chans, axis=-1).astype(np.float32)
         targets = np.stack(

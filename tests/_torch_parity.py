@@ -4,6 +4,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import ce5g_torch.config as tconfig
@@ -90,3 +91,14 @@ def assert_close_to_power(actual, expected, tol):
     err = np.max(np.abs(a - e), axis=axes)
     rms = np.sqrt(np.mean(np.abs(e) ** 2, axis=axes))
     assert np.all(err <= tol * rms), err / rms
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run the test with torch on one CPU thread. Tests that compare two
+    CPU runs bit for bit need a fixed reduction order, and MKL may pick
+    its thread count at run time (as a card runs one launch configuration)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

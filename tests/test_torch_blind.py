@@ -16,6 +16,7 @@ frame in eight reached 1.3e-3 of the rms and 0.0101 dB of NMSE apart
 frames drawn at −5, 0 and 5 dB.
 """
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -188,8 +189,10 @@ def test_mmse_full_est_ignores_params(jcfg):
 
 @pytest.fixture(scope="module")
 def blind_split(jcfg, tmp_path_factory):
-    """A JAX-made 8-frame SIMO chunk with both Wiener features, as npz,
-    and each frame's JAX score margin."""
+    """A JAX-made 8-frame SIMO chunk as a .ce5g split with a manifest, both
+    Wiener features as sidecars beside it, and each frame's JAX score
+    margin."""
+    from ce5g_torch.data.ce5g_format import write_ce5g
     from ce5g_tpu.data.generator import generate_chunk_fn
     from ce5g_tpu.eval.evaluate import _frames_from_arrays as j_frames
 
@@ -197,30 +200,43 @@ def blind_split(jcfg, tmp_path_factory):
     keys = jax.random.split(jax.random.key(11), FRAMES)
     arrays = {k: np.asarray(v) for k, v in generate_chunk_fn(jcfg)(keys).items()}
     frames = j_frames(arrays, np.arange(FRAMES), jcfg)
-    for tag, est in (("H_wiener", "mmse_full"), ("H_bwiener", "mmse_full_est")):
-        arrays[tag] = np.asarray(_jax_estimator(jcfg, est)(frames))[:, :, 0, 0, :]
-    np.savez(root / "test.npz", **arrays)
-    return root / "test.npz", _jax_priors(jcfg, frames)[0]
+    write_ce5g(root / "test_chunk_00000.ce5g", arrays)
+    (root / "test_manifest.json").write_text(json.dumps(
+        {"split": "test", "total": FRAMES, "files": ["test_chunk_00000.ce5g"]}))
+    for tag, est in (("wiener", "mmse_full"), ("bwiener", "mmse_full_est")):
+        write_ce5g(root / f"test_{tag}_00000.ce5g",
+                   {"H_wiener": np.asarray(_jax_estimator(jcfg, est)(frames))[:, :, 0, 0, :]})
+        (root / f"test_{tag}_manifest.json").write_text(json.dumps(
+            {"split": "test", "estimator": est, "files": [f"test_{tag}_00000.ce5g"]}))
+    return root / "test_manifest.json", _jax_priors(jcfg, frames)[0]
 
 
-def test_channel_dataset_reads_the_blind_feature(blind_split):
+def test_channel_dataset_reads_the_blind_feature(blind_split, tmp_path):
+    from ce5g_torch.data import read_chunk, read_split
     from ce5g_torch.train import ChannelDataset
 
     blind_split = blind_split[0]
-    arrays = dict(np.load(blind_split))
+    root = blind_split.parent
+    feature = {tag: read_chunk(root / f"test_{tag}_00000.ce5g")["H_wiener"]
+               for tag in ("wiener", "bwiener")}
     blind = ChannelDataset(blind_split, wiener="bwiener")
     oracle = ChannelDataset(blind_split, wiener="wiener")
     idx = np.arange(3)
     h_std = blind.stats["h_std"]
-    for ds, name in ((blind, "H_bwiener"), (oracle, "H_wiener")):
+    for ds, tag in ((blind, "bwiener"), (oracle, "wiener")):
         x = ds.make_batch(idx).inputs
         assert x.shape[-1] == 7
-        np.testing.assert_allclose(x[..., 5] + 1j * x[..., 6], arrays[name][idx] / h_std,
+        np.testing.assert_allclose(x[..., 5] + 1j * x[..., 6], feature[tag][idx] / h_std,
                                    rtol=1e-6)
     np.testing.assert_array_equal(ChannelDataset(blind_split, wiener=True).make_batch(idx).inputs,
                                   oracle.make_batch(idx).inputs)
-    with pytest.raises(ValueError, match="unknown wiener tag"):
+    with pytest.raises(FileNotFoundError, match="owiener_manifest"):
         ChannelDataset(blind_split, wiener="owiener")
+    # an H_wiener array in the split wins for any tag (as in the JAX package)
+    np.savez(tmp_path / "merged.npz", **read_split(blind_split), H_wiener=feature["bwiener"])
+    np.testing.assert_array_equal(
+        ChannelDataset(tmp_path / "merged.npz", wiener="wiener").make_batch(idx).inputs,
+        blind.make_batch(idx).inputs)
 
 
 def test_evaluate_estimators_mmse_full_est_matches_jax(jcfg, blind_split):

@@ -20,7 +20,7 @@ import torch
 
 from ce5g_torch.config import config_from_dict, load_config
 from ce5g_torch.data import CHUNK_KEYS, draw_params, generate_chunk, read_chunk, read_split
-from ce5g_torch.data.generator import _write_npz
+from ce5g_torch.data.generator import _write_chunk, _write_npz
 from ce5g_torch.eval import evaluate as tevaluate
 from ce5g_torch.physics import FrameParams
 from ce5g_torch.train import ChannelDataset
@@ -234,11 +234,15 @@ def test_split_files_and_results_dir(served, tmp_path):
     for k in arrays:
         np.testing.assert_array_equal(merged.arrays[k], whole.arrays[k])
     assert merged.stats == whole.stats
+    # .ce5g and .h5 chunks read back as written
     for suffix in (".ce5g", ".h5"):
-        with pytest.raises(NotImplementedError, match="dataset-factory slice"):
-            read_chunk(tmp_path / f"test_chunk_00000{suffix}")
+        _write_chunk(tmp_path / f"test_chunk_00000{suffix}", arrays, suffix[1:])
+        back = read_chunk(tmp_path / f"test_chunk_00000{suffix}")
+        for k in arrays:
+            np.testing.assert_array_equal(back[k], arrays[k])
+    # a merged file carries its Wiener feature in the file, or has none
     np.savez(tmp_path / "plain.npz", **{k: v for k, v in arrays.items() if k != "H_wiener"})
-    with pytest.raises(NotImplementedError, match="dataset-factory slice"):
+    with pytest.raises(ValueError, match="manifest-backed split"):
         ChannelDataset(tmp_path / "plain.npz", wiener=True)
     # the evaluator writes only into the results_dir it was given
     ev = tevaluate.ModelEvaluator(port_cfg(dataclasses.replace(

@@ -356,7 +356,7 @@ def test_device_dataset_equals_make_batch(tmp_path, wiener):
     _split(path, 10, 8)
     with np.load(path) as z:
         arrays = dict(z)
-    arrays["H_bwiener"] = arrays["H_true"][:, :, 0, 0, :] * 0.9
+    arrays["H_wiener"] = arrays["H_true"][:, :, 0, 0, :] * 0.9  # wins for any tag
     np.savez(path, **arrays)
     ds = ChannelDataset(path, wiener=wiener)
     dd = DeviceDataset(ds, build_chunk=3, device="cpu")

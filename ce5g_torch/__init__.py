@@ -8,7 +8,8 @@ kernels; writes and verifies datasets (``data``: chunk files, Wiener
 sidecars, digest manifests) and trains on frames that never leave the
 card (``data.online_train``); trains (``train.Trainer``) and serves
 (``models``, ``train.checkpoint``, ``eval.evaluate``) the learned
-estimators.
+estimators; and runs the evaluation studies (``eval``: measured BER, the
+pilot-density study, the hyperparameter search, the reports).
 ``ce5g_tpu`` stays the reference the port is tested against; this package
 imports neither JAX nor ``ce5g_tpu``.
 

@@ -14,12 +14,17 @@ Gaussian smoother whose bandwidth follows the nearest-pilot distance.
   only. On CUDA tensors it runs the kernel of ``ops.interp_fused``.
 
 On CPU tensors both run their kernel's plain PyTorch version.
+
+:func:`normalized_conv_interpolate` (:329-375) is the normalised
+convolution, separable Gaussian blurs by ``conv1d`` (no kernel of its
+own: the JAX package blurs with ``lax.conv``).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.interp import interpolate_slots
 from ..ops.interp_fused import interpolate_grid_fused
@@ -67,3 +72,50 @@ def interpolate_grid(value_grid: torch.Tensor, mask: torch.Tensor, method: str =
     if mask.ndim == 2:
         return interpolate_grid_fused(value_grid[None], mask[None], method)[0]
     return interpolate_grid_fused(value_grid, mask, method)
+
+
+def _gauss_kernel(sigma: float, device) -> torch.Tensor:
+    r = int(max(2, 3 * sigma))
+    x = torch.arange(-r, r + 1, dtype=torch.float32, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def _blur_axis(x: torch.Tensor, kern: torch.Tensor, axis: int) -> torch.Tensor:
+    """Zero-padded 'same' correlation of real ``x`` with ``kern`` along ``axis``."""
+    moved = x.movedim(axis, -1)
+    flat = moved.reshape(-1, 1, moved.shape[-1])
+    out = F.conv1d(flat, kern.view(1, 1, -1), padding=(kern.shape[0] - 1) // 2)
+    return out.reshape(moved.shape).movedim(-1, axis)
+
+
+def normalized_conv_interpolate(pilot_grid: torch.Tensor, mask: torch.Tensor,
+                                sigmas: Tuple[float, ...] = (1.5, 4.0, 12.0)):
+    """Normalised-convolution (Shepard) interpolation
+    (``ce5g_tpu.estimators.interpolate.normalized_conv_interpolate``):
+    separable Gaussian blurs of value·mask and of the mask, coarse to fine,
+    so sparse regions fall back to wider kernels. No reference analog.
+
+    Args:
+        pilot_grid: (..., S, K) complex grid with values only at pilot REs.
+        mask: (S, K) or (..., S, K) float pilot mask.
+
+    Returns:
+        complex grid of ``pilot_grid``'s shape; zero where no kernel
+        reaches a pilot.
+    """
+    def blur(x, kern):
+        return _blur_axis(_blur_axis(x, kern, -1), kern, -2)
+
+    den = torch.broadcast_to(mask, pilot_grid.shape).to(torch.float32)
+    out = torch.zeros_like(pilot_grid)
+    have = torch.zeros(pilot_grid.shape, dtype=torch.bool, device=pilot_grid.device)
+    for sigma in sigmas:
+        kern = _gauss_kernel(sigma, pilot_grid.device)
+        d = blur(den, kern)
+        est = torch.complex(blur(pilot_grid.real, kern), blur(pilot_grid.imag, kern))
+        est = est / torch.clamp(d, min=1e-8)
+        ok = d > 1e-3
+        out = torch.where(~have & ok, est, out)
+        have = have | ok
+    return out

@@ -44,7 +44,7 @@ from ..config import ExperimentConfig, load_config
 from ..device import resolve_device
 from ..estimators.api import estimate_batch
 from ..physics.profiles import PROFILE_INDEX
-from ..physics.simulate import Frame, FrameParams, draw_frames, simulate_batch, table_for
+from ..physics.simulate import Frame, draw_frames, frame_params, simulate_batch, table_for
 
 #: reference-published averages (PHASE_2_BASELINE_ESTIMATORS.md:255-275)
 REFERENCE_PHASE2 = {
@@ -57,18 +57,6 @@ REFERENCE_PHASE2 = {
 COMPARISON_SNRS = (5.0, 10.0, 15.0, 20.0, 25.0)
 INTERP_DENSITIES = (0.05, 0.10, 0.15, 0.20)
 INTERP_CHANNELS = ("EPA", "EVA", "ETU")
-
-
-def _cell_params(profile: str, snr_db, doppler, density, frames: int, device) -> FrameParams:
-    def full(v, dt):
-        return torch.full((frames,), v, dtype=dt, device=device)
-
-    return FrameParams(
-        profile_idx=full(PROFILE_INDEX[profile], torch.int32),
-        doppler_hz=full(doppler, torch.float32),
-        snr_db=full(snr_db, torch.float32),
-        pilot_density=full(density, torch.float32),
-    )
 
 
 def _cell_generator(seed: int, index: int, device) -> torch.Generator:
@@ -124,7 +112,8 @@ class Phase2Parity:
         """One (channel, snr, doppler, density) cell: mean NMSE-dB per
         (estimator, method) pair over ``frames`` i.i.d. frames drawn from
         (seed, index)."""
-        params = _cell_params(profile, snr_db, doppler, density, self.frames, self.device)
+        params = frame_params(self.frames, PROFILE_INDEX[profile], doppler, snr_db, density,
+                              self.device)
         gen = _cell_generator(seed, index, self.device)
         draws = draw_frames(gen, params, self.cfg, device=self.device)
         frames = simulate_batch(draws, params, cfg=self.cfg, table=self.table,
@@ -193,7 +182,7 @@ def griddata_cross_check(
     cfg = cfg or ExperimentConfig()
     dev = resolve_device(device)
     table = table_for(cfg)
-    params = _cell_params("EVA", snr_db, 50.0, 0.10, frames, dev)
+    params = frame_params(frames, PROFILE_INDEX["EVA"], 50.0, snr_db, 0.10, dev)
     draws = draw_frames(_cell_generator(seed, 0, dev), params, cfg, device=dev)
     batch = simulate_batch(draws, params, cfg=cfg, table=table, device=dev)
 

@@ -10,12 +10,17 @@ distance, lists accepted candidates eight at a time and works tile by
 tile on mask bits, so the cases are pilots in one row only (far rows must
 be reached while a shell is empty), a single pilot, a regular lattice
 (many tied distances: more than eight accepted), a full mask, S = 1 with
-K not a multiple of 32, and 1% and 25% density.
+K not a multiple of 32, 1% and 25% density, and the regular patterns of
+``physics.pilots``: comb (a lattice staggered by symbol; at 15% cut to
+the pilot-slot capacity mid-row) and block (whole pilot rows: one or two
+of the 14).
 
 Slot form (``interp``): the kernel sorts pilots by subcarrier and gives
 every column a window of the same length, so the cases are a column
 holding all S symbols' pilots (ties in the stable sort), fewer valid
-slots than the 128-candidate window, and fewer slots than 128 altogether.
+slots than the 128-candidate window, fewer slots than 128 altogether,
+and comb and block pilots (a block column holds one or two pilots, its
+row all 599).
 
 HPD solve (``hpd_solve``): the kernel lays a grid of 16 × 16 threads
 over the matrix in blocks, so the cases are n = 1 and 2, n at and around
@@ -35,8 +40,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-GRID_CASES = ("one_row", "single_pilot", "lattice", "full", "s1_k45", "density_1", "density_25")
-SLOT_CASES = ("full_column", "few_valid", "few_slots")
+GRID_CASES = ("one_row", "single_pilot", "lattice", "full", "s1_k45", "density_1", "density_25",
+              "comb", "block")
+SLOT_CASES = ("full_column", "few_valid", "few_slots", "comb", "block")
+#: densities of the frames of the comb and block cases (max density 0.15)
+PATTERN_DENSITIES = {"comb": (0.01, 0.10, 0.15), "block": (0.01, 0.15)}
 #: name → (systems, n, right-hand sides, condition number)
 HPD_SHAPES = {
     "n1": (3, 1, 1, 100.0), "n2": (5, 2, 3, 100.0), "n8": (5, 8, 8, 100.0),
@@ -55,6 +63,14 @@ HPD_CASES = tuple(HPD_SHAPES)
 
 def _complex(rng, shape):
     return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _regular(name: str):
+    """The comb or block pattern of PATTERN_DENSITIES[name] at 14 × 599."""
+    from ..physics.pilots import make_pattern
+
+    dens = PATTERN_DENSITIES[name]
+    return make_pattern(torch.zeros(len(dens), 14 * 599), 14, 599, torch.tensor(dens), name)
 
 
 def grid_case(name: str, r: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +97,8 @@ def grid_case(name: str, r: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     elif name in ("density_1", "density_25"):
         density = 0.01 if name == "density_1" else 0.25
         mask = (rng.random((2, s, k)) < density).astype(np.float32)
+    elif name in PATTERN_DENSITIES:
+        mask = _regular(name).mask.numpy()
     else:
         raise ValueError(f"unknown grid case {name!r}")
     b, s, k = mask.shape
@@ -118,6 +136,10 @@ def slot_case(name: str, r: int = 2) -> Dict[str, object]:
     elif name == "few_slots":
         grid, p = (6, 100), 90
         frames = [_slots(rng, *grid, n, p) for n in (60, 90)]
+    elif name in PATTERN_DENSITIES:
+        grid, pat = (14, 599), _regular(name)
+        frames = list(zip(pat.positions.numpy(), pat.valid.numpy()))
+        p = pat.valid.shape[1]
     else:
         raise ValueError(f"unknown slot case {name!r}")
     pos = np.stack([f[0] for f in frames])

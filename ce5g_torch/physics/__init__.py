@@ -7,7 +7,15 @@ from .profiles import (
     used_subcarrier_bins,
 )
 from .jakes import jakes_gains_at_times, path_gains_symbol_sampled
-from .pilots import PilotPattern, make_pattern, scattered_pattern
+from .pilots import (
+    PilotPattern,
+    block_pattern,
+    comb_pattern,
+    extract_pilots,
+    insert_pilots,
+    make_pattern,
+    scattered_pattern,
+)
 from .mimo import apply_channel, apply_channel_common_grid, frequency_response
 from .simulate import (
     Frame,
@@ -29,6 +37,10 @@ __all__ = [
     "jakes_gains_at_times",
     "path_gains_symbol_sampled",
     "PilotPattern",
+    "block_pattern",
+    "comb_pattern",
+    "extract_pilots",
+    "insert_pilots",
     "make_pattern",
     "scattered_pattern",
     "apply_channel",

@@ -67,6 +67,16 @@ class FrameDraws(NamedTuple):
     noise_im: torch.Tensor  # (B, S, R, K) N(0,1) — mimo.py:61
 
 
+def frame_params(b: int, profile_idx: int, doppler_hz: float, snr_db: float, density: float,
+                 device) -> FrameParams:
+    """``b`` frames of one (profile, Doppler, SNR, density) cell on ``device``."""
+    def full(v, dtype):
+        return torch.full((b,), v, dtype=dtype, device=device)
+
+    return FrameParams(full(profile_idx, torch.int32), full(doppler_hz, torch.float32),
+                       full(snr_db, torch.float32), full(density, torch.float32))
+
+
 @functools.lru_cache(maxsize=16)
 def table_for(cfg: ExperimentConfig) -> ProfileTable:
     """The profile table for ``cfg``'s numerology (one per config)."""

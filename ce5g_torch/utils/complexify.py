@@ -1,7 +1,18 @@
-"""Packed complex matmul for the thin delay→subcarrier contractions."""
+"""Complex ↔ planar-real conversions (reference: src/utils.py:173-180),
+and the packed complex matmul of the thin delay→subcarrier contractions."""
 from __future__ import annotations
 
 import torch
+
+
+def complex_to_real(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Stack (re, im) along ``axis`` (appended last by default)."""
+    return torch.stack([x.real, x.imag], dim=axis)
+
+
+def real_to_complex(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of :func:`complex_to_real`."""
+    return torch.complex(x.select(axis, 0), x.select(axis, 1))
 
 
 def packed_complex_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Channel-estimation metrics (reference: src/utils.py:161-170).
+"""Channel-estimation metrics (reference: src/utils.py:156-170,
+src/baseline_estimators.py:315-337).
 
 Reductions run over every axis unless ``axes`` is given.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+
+from ..device import resolve_device
 
 _EPS = 1e-12
 
@@ -46,3 +49,32 @@ def ber_approximation(snr_db, nmse_linear):
     snr_lin = db2linear(snr_db)
     eff = snr_lin / (1.0 + snr_lin * torch.as_tensor(nmse_linear))
     return torch.clamp(0.5 * torch.exp(-eff / 2.0), 1e-6, 0.5)
+
+
+def evaluate_estimator(h_true, h_est) -> Dict[str, torch.Tensor]:
+    """MSE / NMSE / NMSE dB of one estimate over every axis
+    (reference: src/baseline_estimators.py:315-337)."""
+    m = mse(h_true, h_est)
+    n = nmse(h_true, h_est)
+    return {"mse": m, "nmse": n, "nmse_db": linear2db(n)}
+
+
+def calculate_ber(tx_bits, rx_bits) -> torch.Tensor:
+    """Exact bit-error rate (reference: src/utils.py:156-158)."""
+    tx = torch.as_tensor(tx_bits)
+    rx = torch.as_tensor(rx_bits, device=tx.device)
+    return (tx != rx).sum() / tx.numel()
+
+
+def awgn_noise(generator: torch.Generator, shape, snr_db, signal_power=1.0,
+               device="cuda") -> torch.Tensor:
+    """Complex64 AWGN of ``shape`` for an SNR and a signal power
+    (reference src/utils.py:49-68), drawn with ``generator``, which must
+    live on ``device``: the real parts first, then the imaginary parts."""
+    dev = resolve_device(device)
+    noise_power = torch.as_tensor(signal_power, dtype=torch.float32) / db2linear(
+        torch.as_tensor(snr_db, dtype=torch.float32))
+    std = torch.sqrt(noise_power / 2.0).to(dev)
+    re = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+    im = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+    return torch.complex(re * std, im * std)

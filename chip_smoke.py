@@ -81,7 +81,22 @@ Phases, one line each; any failure exits non-zero:
      7-channel layout (mmse_full_est) for 8, samples/s and losses, and a
      torch.profiler trace of three warm online steps; (d) the codec that
      wrote and its MB/s on a 256-frame chunk; (e) each kernel that phase 13
-     launched held against its plain version on the inputs it gave it.
+     launched held against its plain version on the inputs it gave it;
+ 14. the evaluation path at full width, each part held to the JAX package's
+     study files: (a) PilotOptimizer.sweep at the study's settings (2x2 EVA
+     50 Hz, 5-15% pilots, 5-20 dB, 64 frames a cell; 'ls', 'mmse',
+     'mmse_full') against results/pilot_optimization_results.json, mmse_full
+     on the 2-TX floor and the ordering; (b) model_sweep with models/cnn_best
+     and models/cnn_wiener_best (1-10% pilots, QPSK) against its
+     "model_sweep", the models >= 3 dB below ls and mmse_full's measured BER
+     below ls's; (c) ber_sweep on the SIMO config ('ls', 'mmse_full',
+     'mmse_full_est'; 0-30 dB) against its "ber_identifiable"; (d)
+     HyperparameterTuner.random_search, the first 3 of
+     results_simo/random_search_results.json's 20 trials on quick datasets
+     of phase 12's splits; (e) comb and block pilots on the main path at the
+     bench config, each against the CPU on 8 frames; each kernel the phase
+     launched held against its plain version on the inputs (a)-(d) and (e)
+     gave it; and the evaluation and final reports written.
 Each phase prints its wall time. Then the wall time, one JSON line of
 per-kernel numbers, and last the device line.
 
@@ -232,6 +247,29 @@ CODEC_FRAMES = 256
 # The JAX package's tolerance for a materialized chunk against its digest
 # (tests/test_atscale.py:62-64): relative, and absolute by the |x| sum.
 DIGEST_RTOL, DIGEST_ATOL = 3e-5, 1e-4
+# Phase 14, the evaluation path. Its anchors are the JAX package's study files,
+# read at run time: results/pilot_optimization_results.json (the classical
+# sweep, "model_sweep" and "ber_identifiable") and
+# results_simo/random_search_results.json. A per-density average is held
+# within EVAL_BAND_DB of the study's, or 4σ of the port's average where that
+# is wider, as phase 9's means are.
+PILOT_STUDY = os.path.join(REPO, "results", "pilot_optimization_results.json")
+TUNING_STUDY = os.path.join(REPO, "results_simo", "random_search_results.json")
+EVAL_BAND_DB = 0.5
+STUDY_FRAMES = 64  # frames a cell, as the JAX study ran
+FLOOR_2TX_DB, FLOOR_SLACK_DB = -3.01, 0.3  # mmse_full at 2 TX: (T−1)/T
+MODEL_MARGIN_DB = 3.0  # cnn and cnn_wiener below ls at every density
+# The models' normalisers come from a factory split of EXPERIMENT_CONFIG:
+# the data/ split whose stats normalised the JAX study is not committed.
+STATS_FRAMES = 1024
+BER_SNRS = (0.0, 5.0, 10.0, 15.0, 20.0, 25.0, 30.0)
+BER_FRAMES, BER_DENSITY, BER_BAND = 32, 0.05, 0.25
+BER_HELD_TO_DB = 15.0  # above it the TPU may have lifted the Wiener anchors
+# The tuner: the JAX default of 5 epochs a trial on 2000 / 500-frame quick
+# datasets of phase 12's splits, cut in depth from 20 trials to the first 3.
+TUNE_TRIALS, TUNE_EPOCHS, TUNE_TRAIN, TUNE_VAL, TUNE_BAND = 3, 5, 2000, 500, 0.30
+# Comb and block pilots on the main path: (pattern, density).
+REGULAR_CASES = (("comb", 0.10), ("block", 0.01), ("block", 0.10), ("block", 0.15))
 
 
 def quiet(*_):
@@ -1216,9 +1254,11 @@ def blind_phase(dev, card, workdir, cfg, ds, ev, serving_results):
 def training_phase(dev, card, test_ds):
     """Phase 12: the cnn trained on the card as the JAX package's SIMO run
     was, from a device-resident split, with the launch counters read
-    around the path (split, staging, training). Returns the launches."""
+    around the path (split, staging, training). Returns the launches and
+    the quick datasets of its splits for phase 14's tuner."""
     import torch
     from ce5g_torch.config import config_from_dict
+    from ce5g_torch.eval import QuickDataset
     from ce5g_torch.eval.evaluate import ModelEvaluator
     from ce5g_torch.train import ChannelDataset, DeviceDataset, Trainer
 
@@ -1236,8 +1276,13 @@ def training_phase(dev, card, test_ds):
         val_path, _ = factory_split(dev, cfg, workdir, "val", VAL_FRAMES)
         t_made = time.perf_counter() - t0
         t1 = time.perf_counter()
-        dd_train = DeviceDataset(ChannelDataset(train_path), device=dev)
-        dd_val = DeviceDataset(ChannelDataset(val_path), device=dev)
+        train_ds, val_ds = ChannelDataset(train_path), ChannelDataset(val_path)
+        dd_train = DeviceDataset(train_ds, device=dev)
+        dd_val = DeviceDataset(val_ds, device=dev)
+        # phase 14's tuner takes 2000 / 500-frame quick datasets of these splits
+        tune_sets = (QuickDataset(train_ds, TUNE_TRAIN, cfg.seed),
+                     QuickDataset(val_ds, TUNE_VAL, cfg.seed))
+        del train_ds, val_ds
         torch.cuda.synchronize()
         t_staged = time.perf_counter() - t1
         model_dir = os.path.join(workdir, "models")
@@ -1301,7 +1346,7 @@ def training_phase(dev, card, test_ds):
               f"{trained_db:.4f} dB (σ of the mean {sigma:.4f} dB) over {r['num_samples']} frames; "
               "no anchor")
     print(f"phase 12 wall time: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, tune_sets
 
 
 def _with_dataset(cfg, **fields):
@@ -1579,6 +1624,273 @@ def factory_phase(dev, card):
     return launches
 
 
+def _ratio_sigma_db(err, pwr):
+    """σ in dB of 10·log10(Σ err / Σ pwr) over a cell's frames (delta method)."""
+    import numpy as np
+
+    e, p = np.asarray(err, np.float64), np.asarray(pwr, np.float64)
+    r = e.sum() / p.sum()
+    return 10 / math.log(10) * math.sqrt(((e - r * p) ** 2).sum()) / p.sum() / r
+
+
+def hold_average(what, got, sigma, anchor):
+    """A per-density average within EVAL_BAND_DB of the study's, or 4σ of
+    the port's average where that is wider."""
+    band = max(EVAL_BAND_DB, 4 * sigma)
+    fail_unless(abs(got - anchor) <= band,
+                f"{what} {got:.3f} dB within {band:.3f} dB of the JAX study's {anchor:.3f} dB")
+    return f"{got:+.3f} (σ {sigma:.3f}; JAX {anchor:+.3f})"
+
+
+def pilot_sweep(opt, study):
+    """Phase 14 (a): PilotOptimizer.sweep at the JAX study's settings."""
+    conf = study["config"]
+    res = opt.sweep(densities=conf["densities"], snrs_db=conf["snrs_db"],
+                    estimators=("ls", "mmse", "mmse_full"), channel_type=conf["channel_type"],
+                    doppler_hz=conf["doppler_hz"], frames_per_cell=STUDY_FRAMES, per_frame=True)
+    spread = res.pop("per_frame")
+    avg = {}
+    for est in ("ls", "mmse", "mmse_full"):
+        parts = []
+        for d in map(str, conf["densities"]):
+            got = res["recommendation"][est]["avg_nmse_db"][d]
+            cells = spread[est][d].values()
+            sigma = math.sqrt(sum(_ratio_sigma_db(c["err"], c["pwr"]) ** 2
+                                  for c in cells)) / len(cells)
+            anchor = study["recommendation"][est]["avg_nmse_db"][d]
+            parts.append(f"{d}: " + hold_average(f"sweep {est} at {d}", got, sigma, anchor))
+            avg.setdefault(d, {})[est] = got
+        print(f"  (a) {est} average NMSE dB by density: " + "; ".join(parts)
+              + f"; best density {res['recommendation'][est]['best_density']}")
+    for d, by_est in avg.items():
+        fail_unless(abs(by_est["mmse_full"] - FLOOR_2TX_DB) <= FLOOR_SLACK_DB,
+                    f"sweep mmse_full at {d} {by_est['mmse_full']:.3f} dB within "
+                    f"{FLOOR_SLACK_DB} dB of the 2-TX floor {FLOOR_2TX_DB} dB")
+        fail_unless(by_est["mmse_full"] < by_est["mmse"] < by_est["ls"],
+                    f"sweep ordering mmse_full < mmse < ls at {d}: {by_est}")
+    print(f"  (a) mmse_full within {FLOOR_SLACK_DB} dB of the 2-TX floor {FLOOR_2TX_DB} dB and "
+          "mmse_full < mmse < ls at every density: ok")
+    return res
+
+
+def model_sweep(dev, cfg, opt, study, workdir):
+    """Phase 14 (b): PilotOptimizer.model_sweep with models/cnn_best and
+    models/cnn_wiener_best, normalised by a factory split's stats."""
+    from ce5g_torch.train import ChannelDataset
+
+    path, _ = factory_split(dev, _with_dataset(cfg, save_format="ce5g"), workdir, "test",
+                            STATS_FRAMES)
+    stats = ChannelDataset(path).stats
+    conf = study["config"]
+    res = opt.model_sweep(("cnn", "cnn_wiener"), os.path.join(REPO, "models"), stats,
+                          densities=conf["densities"], snrs_db=conf["snrs_db"],
+                          channel_type=conf["channel_type"], doppler_hz=conf["doppler_hz"],
+                          frames_per_cell=STUDY_FRAMES, modulation=conf["modulation"],
+                          per_frame=True)
+    fail_unless(res["config"]["models"] == ["cnn", "cnn_wiener"], "both models loaded")
+    print(f"  (b) stats of a {STATS_FRAMES}-frame factory split: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in stats.items()))
+    avg = {}
+    for name in ("ls", "mmse_full", "cnn", "cnn_wiener"):
+        parts = []
+        for d in map(str, conf["densities"]):
+            cells = res["results"][name][d].values()
+            got = res["recommendation"][name]["avg_nmse_db_slice"][d]
+            sigma = math.sqrt(sum(mean_db(c.pop("per_sample_nmse"))[1] ** 2
+                                  for c in cells)) / len(cells)
+            anchor = study["recommendation"][name]["avg_nmse_db_slice"][d]
+            parts.append(f"{d}: " + hold_average(f"model sweep {name} at {d}", got, sigma, anchor))
+            avg.setdefault(d, {})[name] = got
+        print(f"  (b) {name} average slice NMSE dB by density: " + "; ".join(parts))
+    for d, by_name in avg.items():
+        for m in ("cnn", "cnn_wiener"):
+            fail_unless(by_name[m] <= by_name["ls"] - MODEL_MARGIN_DB,
+                        f"{m} beats ls by >= {MODEL_MARGIN_DB} dB at {d}: {by_name}")
+    ber = res["results"]
+    for d in map(str, conf["densities"]):
+        for snr in map(str, conf["snrs_db"]):
+            fail_unless(ber["mmse_full"][d][snr]["ber"] < ber["ls"][d][snr]["ber"],
+                        f"measured BER of mmse_full below ls's at {d}, {snr} dB")
+        print(f"  (b) BER at {d} by SNR " + ", ".join(map(str, conf["snrs_db"])) + ": "
+              + "; ".join(f"{n} " + " ".join(f"{ber[n][d][s]['ber']:.4f}" for s in map(str, conf["snrs_db"]))
+                          for n in ("ls", "mmse_full", "cnn", "cnn_wiener")))
+    print(f"  (b) cnn and cnn_wiener beat ls by >= {MODEL_MARGIN_DB} dB at every density; BER of "
+          "mmse_full below ls's in every cell: ok")
+    return res
+
+
+def ber_study(dev, study):
+    """Phase 14 (c): ber_sweep on the SIMO config at the JAX study's settings."""
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.eval import ber_sweep
+
+    simo = config_from_dict(SIMO_CONFIG)
+    anchors = study["ber_vs_snr"]
+    out = {}
+    for est in ("ls", "mmse_full", "mmse_full_est"):
+        pts = ber_sweep(simo, BER_SNRS, estimator=est, density=BER_DENSITY,
+                        frames_per_point=BER_FRAMES, counts=True, device=dev)
+        parts = []
+        for snr in BER_SNRS:
+            pt = pts[str(snr)]
+            anchor = anchors[est][str(snr)]
+            sigma = statistics.stdev(pt["per_frame"]) / math.sqrt(len(pt["per_frame"]))
+            line = f"{snr:g} dB {pt['ber']:.5f} ({pt['errors']} of {pt['bits']} bits; JAX {anchor:.5f}"
+            if snr <= BER_HELD_TO_DB:
+                band = max(BER_BAND * anchor, 4 * sigma)
+                fail_unless(abs(pt["ber"] - anchor) <= band,
+                            f"{est} BER at {snr} dB {pt['ber']:.5f} within {band:.5f} of {anchor:.5f}")
+                line += f" ± {band:.5f}"
+            parts.append(line + ")")
+        bers = [pts[str(snr)]["ber"] for snr in BER_SNRS]
+        fail_unless(all(a > b for a, b in zip(bers, bers[1:])), f"{est} BER falls with SNR: {bers}")
+        out[est] = {k: v["ber"] for k, v in pts.items()}
+        print(f"  (c) {est}: " + "; ".join(parts))
+    fail_unless(all(out["mmse_full"][k] <= out["ls"][k] for k in out["ls"]),
+                "BER of mmse_full <= ls's at every SNR")
+    print(f"  (c) held at <= {BER_HELD_TO_DB:g} dB (±{BER_BAND:.0%} or 4σ); BER falls with SNR; "
+          "mmse_full <= ls: ok")
+    return out
+
+
+def tuning_run(dev, workdir, tune_sets):
+    """Phase 14 (d): HyperparameterTuner.random_search, the first TUNE_TRIALS
+    of the JAX study's 20 trials (seed 0)."""
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.eval import HyperparameterTuner
+    from ce5g_torch.eval.tuning import draw_random_trials
+
+    stored = json.loads(open(TUNING_STUDY).read())
+    jax_loss = {json.dumps(r["params"]): r["val_loss"] for r in stored}
+    cfg = config_from_dict(SIMO_CONFIG)
+    # phase 12 handed over 2000 / 500-frame QuickDatasets of its splits, taken
+    # as the tuner takes them: a QuickDataset of those is the identity
+    tuner = HyperparameterTuner(cfg, *tune_sets, workdir, quick_train=TUNE_TRAIN,
+                                quick_val=TUNE_VAL, epochs_per_trial=TUNE_EPOCHS,
+                                log=lambda m: print("  (d) " + m), device=dev)
+    results = tuner.random_search(num_trials=TUNE_TRIALS, seed=0)
+    drawn = [json.dumps(json.loads(json.dumps(t))) for t in draw_random_trials(TUNE_TRIALS)]
+    got = {json.dumps(json.loads(json.dumps(r["params"]))): r["val_loss"] for r in results}
+    fail_unless(sorted(got) == sorted(drawn) and all(t in jax_loss for t in drawn),
+                "the tuner's trials are the first of the JAX study's draw order")
+    for t in drawn:
+        fail_unless(abs(got[t] - jax_loss[t]) <= TUNE_BAND * jax_loss[t],
+                    f"trial {t}: validation loss {got[t]:.4f} within {TUNE_BAND:.0%} of the "
+                    f"JAX trial's {jax_loss[t]:.4f}")
+    written = json.loads(open(os.path.join(workdir, "random_search_results.json")).read())
+    losses = [r["val_loss"] for r in written]
+    fail_unless(losses == sorted(losses) and len(written) == TUNE_TRIALS,
+                "random_search_results.json written, sorted")
+    print("  (d) validation loss by trial, in the order drawn: "
+          + "; ".join(f"{got[t]:.4f} (JAX {jax_loss[t]:.4f})" for t in drawn)
+          + f"; within ±{TUNE_BAND:.0%}: ok")
+
+
+def regular_pilots(dev):
+    """Phase 14 (e): comb and block pilots on the main path at the bench
+    config, each case checked against the same path on the CPU on 8 frames."""
+    import dataclasses
+
+    import torch
+    from ce5g_torch.physics import FrameDraws, FrameParams, draw_frames
+
+    base, params = bench_setup(dev, BATCH)
+    cpu = torch.device("cpu")
+    for i, (pattern, density) in enumerate(REGULAR_CASES):
+        cfg = dataclasses.replace(base, pilots=dataclasses.replace(base.pilots, pattern=pattern))
+        p = FrameParams(*params[:3], torch.full((BATCH,), density, device=dev))
+        before = read_launches()
+        draws = draw_frames(torch.Generator(device=dev).manual_seed(20 + i), p, cfg, device=dev)
+        frames, out = run_path(dev, cfg, p, draws)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in read_launches().items()}
+        for est, (h, _) in out.items():
+            fail_unless(bool(torch.isfinite(h).all()), f"{pattern} {density} {est} finite")
+        fail_unless(out["mmse_full"][1] < out["ls"][1], f"{pattern} {density}: mmse_full < ls")
+        n = 8
+        small = FrameDraws(*(x[:n].cpu() for x in draws))
+        _, on_cpu = run_path(cpu, cfg, FrameParams(*(x[:n].cpu() for x in p)), small)
+        _, on_card = run_path(dev, cfg, FrameParams(*(x[:n] for x in p)),
+                              FrameDraws(*(x[:n] for x in draws)))
+        errs = []
+        for est in on_card:
+            (h_card, db_card), (h_cpu, db_cpu) = on_card[est], on_cpu[est]
+            fail_unless(abs(db_card - db_cpu) < 0.01,
+                        f"{pattern} {density} {est} card vs CPU NMSE within 0.01 dB")
+            rms = float((h_cpu.abs() ** 2).mean().sqrt())
+            err = float((h_card.cpu() - h_cpu).abs().max()) / rms
+            if est != "mmse_full":  # its Woodbury system: PERF.md, ROADMAP queue 3
+                fail_unless(err <= 1e-4, f"{pattern} {density} {est} card vs CPU {err:.2e} <= 1e-4")
+            errs.append(f"{est} {err:.1e}")
+        print(f"  (e) {pattern} {density:.0%} ({int(frames.num_pilots[0])} pilots, {BATCH} frames): "
+              "NMSE dB " + ", ".join(f"{est} {db:.4f}" for est, (_, db) in out.items())
+              + "; launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
+              + f"; card vs CPU on {n} frames, max error of rms: " + ", ".join(errs))
+
+
+def evaluation_phase(dev, card, serving_results, tune_sets):
+    """Phase 14: the evaluation path at full width, (a)-(e), with the launch
+    counters read around it; each kernel it launched is held against its
+    plain version on the inputs (a)-(d) gave it and on those (e) gave it;
+    then the reports. Returns the launches."""
+    import torch
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.eval import PilotOptimizer, generate_evaluation_report, generate_final_report
+
+    t_phase = time.perf_counter()
+    study = json.loads(open(PILOT_STUDY).read())
+    cfg = config_from_dict(EXPERIMENT_CONFIG)
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_evaluation_") as workdir:
+        torch.cuda.synchronize()
+        reset_launches()
+        with capturing() as cap:
+            opt = PilotOptimizer(cfg, workdir, device=dev)
+            t0 = time.perf_counter()
+            res = pilot_sweep(opt, study)
+            walls["sweep"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["model_sweep"] = model_sweep(dev, cfg, opt, study["model_sweep"], workdir)
+            walls["model sweep"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["ber_identifiable"] = {"ber_vs_snr": ber_study(dev, study["ber_identifiable"])}
+            walls["ber"] = time.perf_counter() - t0
+            opt.save(res)
+            t0 = time.perf_counter()
+            tuning_run(dev, workdir, tune_sets)
+            walls["tuning"] = time.perf_counter() - t0
+        with capturing() as cap_regular:
+            t0 = time.perf_counter()
+            regular_pilots(dev)
+            walls["comb and block"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print("kernels launched on the evaluation path: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        fail_unless(all(n > 0 for n in launches.values()),
+                    f"every kernel launched on the evaluation path: {launches}")
+        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused"}
+                    and set(cap_regular.args) == set(launches),
+                    f"the inputs captured: (a)-(d) {sorted(cap.args)}, (e) {sorted(cap_regular.args)}")
+        hold_against_plain("evaluation path (a)-(d)", cap.args)
+        hold_against_plain("comb and block path", cap_regular.args)
+
+        text = generate_evaluation_report(serving_results, os.path.join(workdir, "report.md"),
+                                          {"config": "configs/simo_identifiable.yaml",
+                                           "frames": SERVING_FRAMES})
+        fail_unless("## Improvement vs LS" in text and "| cnn_wiener |" in text,
+                    "the evaluation report of phase 9's results")
+        final = generate_final_report(workdir)
+        fail_unless(all(f"## {n}" in final for n in ("pilot_optimization_results",
+                                                     "random_search_results")),
+                    "the final report of phase 14's results")
+        print(f"  reports: evaluation report {len(text)} characters, final report "
+              f"{len(final)} characters; written")
+    print(f"phase 14 wall time: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return launches
+
+
 def main():
     import torch
 
@@ -1707,15 +2019,17 @@ def main():
         where_a_serving_batch_goes(ev, ds, MODEL_BATCH)
         print(f"phases 9-10 wall time: {time.perf_counter() - t0:.1f} s")
         blind_launches = blind_phase(dev, card, workdir, ev.cfg, ds, ev, serving_results)
-        training_launches = training_phase(dev, card, ds)
+        training_launches, tune_sets = training_phase(dev, card, ds)
     factory_launches = factory_phase(dev, card)
+    evaluation_launches = evaluation_phase(dev, card, serving_results, tune_sets)
     for kern in kernels:
         kern["launches_by_path"] = {"main": launches[kern["name"]],
                                     "parity": parity_launches[kern["name"]],
                                     "serving": serving_launches[kern["name"]],
                                     "blind": blind_launches[kern["name"]],
                                     "training": training_launches[kern["name"]],
-                                    "factory": factory_launches[kern["name"]]}
+                                    "factory": factory_launches[kern["name"]],
+                                    "evaluation": evaluation_launches[kern["name"]]}
     print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

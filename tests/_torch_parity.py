@@ -29,31 +29,64 @@ def port_cfg(jcfg):
     return tconfig.ExperimentConfig(**subs, **rest)
 
 
+def _jax_channel_draws(k_pilot, k_fade, k_noise, cfg):
+    """The pilot uniforms, Jakes angles and phases and noise normals that
+    ce5g_tpu draws from a frame's pilot, fade and noise keys
+    (pilots.py:52, jakes.py:42-46, mimo.py:57-62)."""
+    s = cfg.ofdm.num_symbols
+    k = cfg.ofdm.num_used_subcarriers
+    r, t, o = cfg.mimo.num_rx, cfg.mimo.num_tx, cfg.channel.num_oscillators
+    two_pi = 2.0 * jnp.pi
+    u = jax.random.uniform(k_pilot, (s * k,))
+    ka, kp = jax.random.split(k_fade)
+    shape = (MAX_PATHS, r, t, o)
+    angles = two_pi * jax.random.uniform(ka, shape, dtype=jnp.float32)
+    phases = two_pi * jax.random.uniform(kp, shape, dtype=jnp.float32)
+    kr, ki = jax.random.split(k_noise)
+    nr = jax.random.normal(kr, (s, r, k), jnp.float32)
+    ni = jax.random.normal(ki, (s, r, k), jnp.float32)
+    return u, angles, phases, nr, ni
+
+
 def jax_draws(keys, cfg, orthogonal=False):
     """The draws ce5g_tpu's simulate_frame makes from each key: the same
     split(key, 4) and sub-splits as physics/simulate.py:107, pilots.py:52,
     jakes.py:42-46 and mimo.py:57-62, as the port's FrameDraws."""
     s = cfg.ofdm.num_symbols
     k = cfg.ofdm.num_used_subcarriers
-    r, t, o = cfg.mimo.num_rx, cfg.mimo.num_tx, cfg.channel.num_oscillators
-    two_pi = 2.0 * jnp.pi
+    t = cfg.mimo.num_tx
 
     def one(key):
         k_pilot, k_tx, k_fade, k_noise = jax.random.split(key, 4)
-        u = jax.random.uniform(k_pilot, (s * k,))
+        u, angles, phases, nr, ni = _jax_channel_draws(k_pilot, k_fade, k_noise, cfg)
         phase = jax.random.uniform(
-            k_tx, (s, t if orthogonal else 1, k), minval=0.0, maxval=two_pi
+            k_tx, (s, t if orthogonal else 1, k), minval=0.0, maxval=2.0 * jnp.pi
         )
-        ka, kp = jax.random.split(k_fade)
-        shape = (MAX_PATHS, r, t, o)
-        angles = two_pi * jax.random.uniform(ka, shape, dtype=jnp.float32)
-        phases = two_pi * jax.random.uniform(kp, shape, dtype=jnp.float32)
-        kr, ki = jax.random.split(k_noise)
-        nr = jax.random.normal(kr, (s, r, k), jnp.float32)
-        ni = jax.random.normal(ki, (s, r, k), jnp.float32)
         return u, phase, angles, phases, nr, ni
 
     return FrameDraws(*(torch.tensor(np.asarray(x)) for x in jax.vmap(one)(keys)))
+
+
+def jax_qam_draws(keys, cfg, modulation=4):
+    """The draws ce5g_tpu's simulate_qam_frame makes from each key: the
+    five-way split of eval/ber.py:50 (pilot, tx, fade, noise, bits), the
+    (S, K) pilot phase of :61-63 and the Bernoulli bits of :58, as the
+    port's QAMDraws."""
+    from ce5g_torch.eval.ber import QAMDraws
+
+    s = cfg.ofdm.num_symbols
+    k = cfg.ofdm.num_used_subcarriers
+    bps = int(np.log2(modulation))
+
+    def one(key):
+        k_pilot, k_tx, k_fade, k_noise, k_bits = jax.random.split(key, 5)
+        u, angles, phases, nr, ni = _jax_channel_draws(k_pilot, k_fade, k_noise, cfg)
+        phase = jax.random.uniform(k_tx, (s, k), minval=0.0, maxval=2.0 * jnp.pi)
+        bits = jax.random.bernoulli(k_bits, 0.5, (s * k * bps,)).astype(jnp.int32)
+        return u, phase[:, None, :], angles, phases, nr, ni, bits
+
+    *frame, bits = (torch.tensor(np.asarray(x)) for x in jax.vmap(one)(keys))
+    return QAMDraws(FrameDraws(*frame), bits)
 
 
 def jax_params(profile, doppler, snr, density):

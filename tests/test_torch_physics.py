@@ -94,8 +94,10 @@ def test_pattern_rules():
     u = torch.rand(1, 6 * 39)
     with pytest.raises(ValueError, match="max_density"):
         make_pattern(u, 6, 39, 0.2)
-    with pytest.raises(NotImplementedError):
-        make_pattern(u, 6, 39, 0.1, pattern="comb")
+    with pytest.raises(ValueError, match="Unknown pilot pattern"):
+        make_pattern(u, 6, 39, 0.1, pattern="diagonal")
+    for pattern in ("comb", "block"):  # ported: tests/test_torch_patterns.py holds them
+        assert make_pattern(u, 6, 39, 0.1, pattern=pattern).mask.shape == (1, 6, 39)
 
 
 def test_draw_frames_law(small_cfg):

@@ -20,6 +20,11 @@ Port of ``ce5g_tpu.estimators.mmse``.
    (``ops.hpd_solve``). The pilot sums are masked grid sums, so no pilot
    gather is needed (see the JAX module for the derivation).
 
+The Wiener-prior API (``WienerPrior``, ``build_wiener_prior``,
+``wiener_solve``, ``wiener_reconstruct``) is the same filter in its
+explicit pilot-axis form for one frame, and ``estimate_covariance`` the
+reference's sample covariance (baseline_estimators.py:137-153).
+
 Precision: the Woodbury path relies on the exact cancellation
 (h − Φ·sol)/σ²; the entry points pin float32 matmuls to full precision
 (``device.resolve_device``).
@@ -128,6 +133,79 @@ def mmse_diag_estimate(
     h_full = h_full.transpose(1, 2)  # (B, S, R, K)
     b, s, r, k = h_full.shape
     return h_full[:, :, :, None, :].expand(b, s, r, num_tx, k)
+
+
+class WienerPrior(NamedTuple):
+    """One frame's second-order prior pieces (``ce5g_tpu`` mmse.py:151-157)."""
+
+    phi: torch.Tensor  # (P, r) complex — low-rank pilot factor, weights folded in
+    u_scaled: torch.Tensor  # (S, S) real — U·√λ time eigenbasis
+    f_mat: torch.Tensor  # (n_paths, K) complex — delay→bin matrix of the profile
+    w_path: torch.Tensor  # (n_paths,) path powers ½·amp²
+
+
+def build_wiener_prior(freq_matrix, amp, doppler_hz, symbol_duration: float,
+                       num_symbols: int, positions, valid) -> WienerPrior:
+    """The rank-r pilot factor Φ with ΦΦᴴ = R_pp, and the reconstruction
+    pieces: Φ[i, (p, m)] = √w_p·F[p, k_i]·(U√λ)[s_i, m], where R_t = UλUᵀ
+    with J0 time correlation. The eigenvectors' signs are the library's, so
+    Φ and ``u_scaled`` may differ from the JAX package's column by column;
+    ΦΦᴴ and U·λ·Uᵀ, and so every result below, do not."""
+    w_path = 0.5 * amp.to(torch.float32) ** 2  # Jakes E|h|² = ½
+    ds = torch.arange(num_symbols, dtype=torch.float32, device=amp.device)
+    fd = torch.as_tensor(doppler_hz, dtype=torch.float32, device=amp.device)
+    rt = bessel_j0(2.0 * math.pi * fd * (ds[:, None] - ds[None, :]) * symbol_duration)
+    lam, u = torch.linalg.eigh(rt)  # ascending
+    u_scaled = u * torch.sqrt(lam.clamp(min=0.0))[None, :]  # (S, S)
+
+    sy, sc = positions[:, 0].long(), positions[:, 1].long()
+    f_pil = freq_matrix[:, sc]  # (n_paths, P)
+    u_pil = u_scaled[sy]  # (P, S)
+    phi = (torch.sqrt(w_path)[:, None] * f_pil).T[:, :, None] * u_pil[:, None, :]
+    phi = phi.reshape(phi.shape[0], -1) * valid[:, None]  # (P, n_paths·S)
+    return WienerPrior(phi, u_scaled, freq_matrix, w_path)
+
+
+def wiener_solve(prior: WienerPrior, h_pilots, sigma2, obs_scale):
+    """x = (obs_scale·ΦΦᴴ + σ²I)⁻¹ h through the Woodbury identity; h is
+    (..., P). The r × r system is Hermitian positive definite, solved by
+    ``torch.linalg.cholesky`` and two triangular solves with every leading
+    index as one block of right-hand sides, as the JAX package's XLA solve
+    (mmse.py:191-212) is: an API call for one frame, not the batched
+    ``mmse_full`` path that the HPD kernel serves."""
+    phi = prior.phi * obs_scale ** 0.5
+    r = phi.shape[1]
+    gram = phi.mH @ phi + sigma2 * torch.eye(r, dtype=phi.dtype, device=phi.device)
+    ph = torch.einsum("pr,...p->...r", phi.conj(), h_pilots)
+    rhs = ph.reshape(-1, r).T  # (r, N)
+    chol = torch.linalg.cholesky(gram)
+    y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    z = torch.linalg.solve_triangular(chol.mH, y, upper=True)
+    sol = z.T.reshape(ph.shape)
+    return (h_pilots - torch.einsum("pr,...r->...p", phi, sol)) / sigma2
+
+
+def wiener_reconstruct(prior: WienerPrior, x, positions, grid_shape: Tuple[int, int]):
+    """Ĥ = R_grid,pilot · x as small matmuls (``ce5g_tpu`` mmse.py:215-230):
+    the pilot-axis sum Σ_i x_i·F*[p, k_i]·1[s_i = s] is one one-hot matmul.
+    x: (..., P) → (..., S, K)."""
+    s, _ = grid_shape
+    sy, sc = positions[:, 0].long(), positions[:, 1].long()
+    xf = x[..., None, :] * prior.f_mat[:, sc].conj()  # (..., n_paths, P)
+    onehot = (sy[:, None] == torch.arange(s, device=sy.device)[None, :]).to(xf.dtype)
+    t1 = torch.einsum("...zp,ps->...sz", xf, onehot)  # (..., S, n_paths)
+    rt_full = prior.u_scaled @ prior.u_scaled.T  # R_t
+    t2 = torch.einsum("zs,...sp->...zp", rt_full.to(t1.dtype), t1) * prior.w_path
+    return torch.einsum("...zp,pk->...zk", t2, prior.f_mat)
+
+
+def estimate_covariance(h_ls):
+    """Sample covariance of LS estimates (reference
+    baseline_estimators.py:137-153, dead code there, kept for API parity):
+    the leading dims flattened, (last_dim, last_dim)."""
+    h = h_ls.reshape(-1, h_ls.shape[-1])
+    hc = h - h.mean(dim=0, keepdim=True)
+    return hc.mH @ hc / max(h.shape[0] - 1, 1)
 
 
 class FTables(NamedTuple):

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -30,6 +31,24 @@ def to_channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks of ``group``; its gradient is the sum of the
+    ranks' gradients, since every rank's loss reads the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax ``nnx.BatchNorm`` on (B, C, S, K): ε 1e-5, and in train mode
     running statistics that move as flax's do. flax keeps momentum 0.99
@@ -37,14 +56,25 @@ class BatchNorm(nn.BatchNorm2d):
     where torch averages the unbiased one. The statistics are float32
     under a half compute dtype, as flax's reductions are. Eval mode, and
     the buffer names that ``convert`` maps to flax's scale/bias/mean/var,
-    are torch's."""
+    are torch's.
+
+    With a process group in ``group`` (:func:`set_batchnorm_group`, the
+    mesh's 'data' group) train mode takes its statistics over the global
+    batch, as the JAX step does under GSPMD: the channel sums of x, then of
+    (x − mean)², are all-reduced with autograd through the reduction. Two
+    passes, as ``F.batch_norm`` takes them: flax's one-pass mean(x²) −
+    mean(x)² loses float32 precision where |mean| ≫ std. Without a group,
+    or with a group of one rank, nothing changes."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.01)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None and dist.get_world_size(self.group) > 1:
+            return self._global_forward(x)
         # momentum 1 leaves the batch's own mean and unbiased variance in
         # the scratch buffers, from the same fused pass that normalises
         mean = torch.zeros_like(self.running_mean)
@@ -56,6 +86,30 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked += 1
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.float()
+        n = x.numel() // c * dist.get_world_size(self.group)
+        mean = _AllReduceSum.apply(xf.sum(dim=(0, 2, 3)), self.group) / n
+        centred = xf - mean[:, None, None]
+        var = _AllReduceSum.apply((centred * centred).sum(dim=(0, 2, 3)), self.group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * scale[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return y.to(x.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group) -> nn.Module:
+    """Take every :class:`BatchNorm`'s train-mode statistics over ``group``
+    (None: each process's own batch). Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model
 
 
 class ConvBlock(nn.Module):

@@ -7,7 +7,9 @@ batched over a leading frame axis B:
     against each frame's delay→bin matrix, no FFT;
   * y = H·x per resource element;
   * AWGN scaled to each frame's measured mean received power (:337-343).
-    The normal draws are passed in.
+    The normal draws are passed in;
+  * the time-domain chain's time-varying FIR, y_r(n) = Σ_p Σ_t
+    g[n, r, t, p] · x_t(n − d_p), with each frame's own tap delays.
 """
 from __future__ import annotations
 
@@ -65,3 +67,31 @@ def apply_channel_common_grid(tx_grid, path_gains, freq_matrix, snr_db, noise_re
     hsum = packed_complex_matmul(gsum, freq_matrix)  # (B, S, R, K)
     received = hsum * tx_grid[:, :, None, :]
     return _add_awgn(received, snr_db, noise_re, noise_im)
+
+
+def time_domain_apply(tx_signal, dense_gains, delay_samples, path_valid):
+    """Apply the time-varying FIR channel sample by sample
+    (``ce5g_tpu`` mimo.py:113-145), batched over frames whose profiles may
+    differ.
+
+    Args:
+        tx_signal: (B, T, N) complex serialized signal per TX antenna.
+        dense_gains: (B, N, R, T, P) complex per-sample path gains.
+        delay_samples: (B, P) int tap delays of each frame's profile.
+        path_valid: (B, P) path validity weights.
+
+    Returns:
+        (B, R, N) complex64 received signal before noise; x(n − d) is zero
+        for n < d, as no input came before the frame.
+    """
+    b, t, n = tx_signal.shape
+    r = dense_gains.shape[2]
+    idx = torch.arange(n, device=tx_signal.device)
+    y = torch.zeros((b, n, r), dtype=torch.complex64, device=tx_signal.device)
+    for p in range(delay_samples.shape[1]):  # ≤ 9 paths
+        src = idx[None, :] - delay_samples[:, p:p + 1].long()  # (B, N)
+        x_p = torch.gather(tx_signal, 2, src.clamp(min=0)[:, None, :].expand(b, t, n))
+        x_p = x_p * (src >= 0)[:, None, :]
+        g_p = dense_gains[..., p] * path_valid[:, p].reshape(b, 1, 1, 1)  # (B, N, R, T)
+        y += (g_p * x_p.transpose(1, 2)[:, :, None, :]).sum(-1)
+    return y.transpose(1, 2)

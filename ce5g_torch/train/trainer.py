@@ -20,6 +20,14 @@ recurrent ones included. The shuffle is the JAX package's,
 batches, so both packages see the same batches. With
 ``cfg.training.mixed_precision`` the model computes in bf16 (autocast,
 float32 parameters) and the loss stays float32.
+
+With a ``mesh`` (``parallel.make_mesh``) the trainer is data parallel, as
+the JAX package's is: every rank holds the whole model, takes its slice of
+each global batch by its 'data' coordinate, and averages the gradients
+over 'data' before the step; BatchNorm takes its statistics over the
+global batch; dropout draws from an RNG seeded by the 'data' coordinate;
+the losses logged are the global batch's; only rank 0 writes checkpoints
+and logs.
 """
 from __future__ import annotations
 
@@ -32,13 +40,16 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import ExperimentConfig
 from ..device import resolve_device
 from ..models.factory import count_parameters, get_model
 from ..models.inputs import apply_output_residual
+from ..models.cnn import set_batchnorm_group
 from ..models.loss import channel_estimation_loss
+from ..parallel.mesh import psum_mean, seed_data_slice, shard_batch
 from .checkpoint import load_checkpoint, save_checkpoint
 from .datasets import ChannelDataset, DeviceDataset
 
@@ -105,12 +116,17 @@ class Trainer:
         device_data: Optional[bool] = None,
         name: Optional[str] = None,
         device="cuda",
+        mesh=None,
     ):
         """``device_data``: train from a split resident on the card
-        (``DeviceDataset``, batches gathered there by index); None or True
-        is that default, False stages every batch from the host.
+        (``DeviceDataset``, batches gathered there by index); None is that
+        default without a mesh and host staging with one (as the JAX
+        package's ``Trainer``), True or False chooses.
         ``name`` prefixes the checkpoint and history files (default the
-        model type; e.g. 'cnn_wiener' = the cnn on wiener features)."""
+        model type; e.g. 'cnn_wiener' = the cnn on wiener features).
+        ``mesh``: a ('data', 'model') ``DeviceMesh`` to train data
+        parallel over 'data'; the batch size is the global one and must
+        divide by the 'data' size."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model_type = model_type or cfg.model.type
@@ -118,6 +134,19 @@ class Trainer:
         dtype = torch.bfloat16 if cfg.training.mixed_precision else torch.float32
         self.model = model or get_model(self.model_type, cfg.model, dtype=dtype, seed=cfg.seed,
                                         device=self.device)
+        self.mesh = mesh
+        self._group = None if mesh is None else mesh.get_group("data")
+        self._writes = mesh is None or dist.get_rank() == 0
+        if mesh is not None:
+            if cfg.training.batch_size % mesh["data"].size():
+                raise ValueError(f"batch size {cfg.training.batch_size} does not divide over "
+                                 f"{mesh['data'].size()} data ranks")
+            # the same weights everywhere, whatever the caller's model
+            for t in list(self.model.parameters()) + list(self.model.buffers()):
+                dist.broadcast(t.data, src=dist.get_global_rank(self._group, 0),
+                               group=self._group)
+            set_batchnorm_group(self.model, self._group)
+            seed_data_slice(mesh, cfg.seed)
         # frozen parameters (the LSTMs' zero input biases) stay out
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(cfg, self.params)
@@ -152,8 +181,11 @@ class Trainer:
 
     # ---------------------------------------------------------------- steps
     def _layout(self, x, y):
-        """The model's layout of a grid batch and the loss's pilot mask:
-        the LSTM takes the flattened (B, S·K, 4) sequence and no mask."""
+        """The model's layout of this rank's slice of a grid batch and the
+        loss's pilot mask: the LSTM takes the flattened (B, S·K, 4)
+        sequence and no mask."""
+        if self.mesh is not None:
+            x, y = shard_batch((x, y), self.mesh)
         if self._is_lstm:
             b, s, k, _ = x.shape
             return x[..., :4].reshape(b, s * k, 4), y.reshape(b, s * k, 2), None
@@ -169,10 +201,27 @@ class Trainer:
         loss = self._loss(x, y, m)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self._average_gradients()
         if self.cfg.training.gradient_clip > 0:
             clip_by_global_norm_(self.params, self.cfg.training.gradient_clip)
         self.optimizer.step()
         return loss.detach()
+
+    def _average_gradients(self) -> None:
+        """Average the gradients over the 'data' ranks, in one reduction."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self._group)
+        flat /= dist.get_world_size(self._group)
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in
+                                     zip(flat.split([g.numel() for g in grads]), grads)])
+
+    def _global(self, losses: torch.Tensor) -> torch.Tensor:
+        """Per-rank losses → the global batches' (the mean over 'data')."""
+        if self.mesh is None:
+            return losses
+        return psum_mean(losses, self._group)
 
     def _set_lr(self, epoch: int) -> None:
         lr = lr_schedule_per_epoch(self.cfg, epoch, self._lr_scale)
@@ -183,7 +232,7 @@ class Trainer:
         """One fetch of the epoch's step losses; every tenth is logged."""
         if not losses:
             return 0.0
-        vals = torch.stack(losses).float().cpu().numpy()
+        vals = self._global(torch.stack(losses).float()).cpu().numpy()
         for i in range(9, len(vals), 10):
             self._log_scalar("train/batch_loss", epoch * 10000 + i + 1, float(vals[i]))
         return float(vals.mean())
@@ -210,7 +259,7 @@ class Trainer:
         with torch.no_grad():
             losses = [self._loss(*self._host_batch(batch))
                       for batch in dataset.batches(self.cfg.training.batch_size)]
-        return float(torch.stack(losses).mean()) if losses else 0.0
+        return float(self._global(torch.stack(losses)).mean()) if losses else 0.0
 
     def _device_train_epoch(self, dd: DeviceDataset, epoch: int) -> float:
         """One epoch over a device-resident split, batches gathered on the
@@ -237,7 +286,7 @@ class Trainer:
             losses = [self._loss(*self._layout(dd.inputs[i * bsz:(i + 1) * bsz],
                                                dd.targets[i * bsz:(i + 1) * bsz]))
                       for i in range(steps)]
-        return float(torch.stack(losses).mean())
+        return float(self._global(torch.stack(losses)).mean())
 
     def _plateau_update(self, val_loss: float):
         """torch ReduceLROnPlateau(mode=min, patience=10, factor=0.1)."""
@@ -288,12 +337,13 @@ class Trainer:
         cfg = self.cfg
         epochs = cfg.training.epochs if epochs is None else epochs
         model_dir = Path(model_dir or cfg.model_dir)
-        model_dir.mkdir(parents=True, exist_ok=True)
+        if self._writes:
+            model_dir.mkdir(parents=True, exist_ok=True)
         self.log(
             f"Training {self.model_type}: {count_parameters(self.model):,} params, "
             f"{epochs} epochs, batch {cfg.training.batch_size}"
         )
-        use_device = self.device_data is not False
+        use_device = self.device_data if self.device_data is not None else self.mesh is None
         if use_device:
             t0 = time.perf_counter()
             dd_train, dd_val = (
@@ -328,7 +378,7 @@ class Trainer:
             if val_loss < self.best_val_loss - cfg.training.min_delta:
                 self.best_val_loss = val_loss
                 self.epochs_without_improvement = 0
-                if cfg.training.save_best:
+                if cfg.training.save_best and self._writes:
                     save_checkpoint(model_dir / f"{self.name}_best", self.model,
                                     epoch=epoch, val_loss=val_loss)
             else:
@@ -336,9 +386,10 @@ class Trainer:
 
             # rolling resumable checkpoint: a killed run continues from here
             # with the same trajectory
-            save_checkpoint(model_dir / f"{self.name}_last", self.model, self.optimizer,
-                            **self._trainer_meta(epoch, val_loss))
-            if (epoch + 1) % cfg.training.save_freq == 0:
+            if self._writes:
+                save_checkpoint(model_dir / f"{self.name}_last", self.model, self.optimizer,
+                                **self._trainer_meta(epoch, val_loss))
+            if (epoch + 1) % cfg.training.save_freq == 0 and self._writes:
                 save_checkpoint(model_dir / f"{self.name}_epoch_{epoch + 1}", self.model,
                                 self.optimizer, **self._trainer_meta(epoch, val_loss))
 
@@ -347,11 +398,13 @@ class Trainer:
                 self.log(f"Early stopping at epoch {epoch + 1}")
                 break
 
-        save_checkpoint(model_dir / f"{self.name}_final", self.model, epoch=epoch,
-                        val_loss=val_loss)
-        (model_dir / f"{self.name}_history.json").write_text(json.dumps(self.history, indent=2))
-        (model_dir / f"{self.name}_scalars.jsonl").write_text(
-            "\n".join(json.dumps(r) for r in self._scalar_log))
+        if self._writes:
+            save_checkpoint(model_dir / f"{self.name}_final", self.model, epoch=epoch,
+                            val_loss=val_loss)
+            (model_dir / f"{self.name}_history.json").write_text(
+                json.dumps(self.history, indent=2))
+            (model_dir / f"{self.name}_scalars.jsonl").write_text(
+                "\n".join(json.dumps(r) for r in self._scalar_log))
         if self._tb is not None:
             self._tb.close()
         return {

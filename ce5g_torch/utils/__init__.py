@@ -1,5 +1,5 @@
 from .complexify import complex_to_real, packed_complex_matmul, real_to_complex
-from .host import get_numpy
+from .host import get_numpy, put_complex
 from .metrics import (
     awgn_noise,
     ber_approximation,
@@ -18,6 +18,7 @@ from .sanitize import assert_finite, debug_nans, finite_report
 __all__ = [
     "complex_to_real",
     "get_numpy",
+    "put_complex",
     "packed_complex_matmul",
     "real_to_complex",
     "awgn_noise",

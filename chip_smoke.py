@@ -96,7 +96,20 @@ Phases, one line each; any failure exits non-zero:
      of phase 12's splits; (e) comb and block pilots on the main path at the
      bench config, each against the CPU on 8 frames; each kernel the phase
      launched held against its plain version on the inputs (a)-(d) and (e)
-     gave it; and the evaluation and final reports written.
+     gave it; and the evaluation and final reports written;
+ 15. the time-domain chain and the parallel layer: (a) 256 time-domain frames
+     (simulate_batch_time_domain, batches of 64) at the bench config through
+     'mmse_full', 'ls' and 'ls:cubic', each mean NMSE held to the JAX
+     package's time-domain anchor and printed beside the frequency-domain
+     path's on the same params, 2 frames held against the CPU, the time of a
+     batch and the peak memory; (b) an NCCL process group started here at the
+     world size of this one process (1): sharded_time_domain_apply on a full
+     4x4 ETU frame against reference_time_domain_apply,
+     sharded_eval_stats_fn('mmse_full') on 256 bench frames against the
+     unsharded pipeline, dryrun_multichip(), and the cnn through
+     Trainer(mesh=...) against the meshless Trainer on phase 12's split; (c)
+     each kernel the phase launched held against its plain version on the
+     inputs it gave it, with the launch counts.
 Each phase prints its wall time. Then the wall time, one JSON line of
 per-kernel numbers, and last the device line.
 
@@ -270,6 +283,23 @@ BER_HELD_TO_DB = 15.0  # above it the TPU may have lifted the Wiener anchors
 TUNE_TRIALS, TUNE_EPOCHS, TUNE_TRAIN, TUNE_VAL, TUNE_BAND = 3, 5, 2000, 500, 0.30
 # Comb and block pilots on the main path: (pattern, density).
 REGULAR_CASES = (("comb", 0.10), ("block", 0.01), ("block", 0.10), ("block", 0.15))
+# Phase 15, the time-domain chain and the parallel layer. The anchors are the
+# JAX package's simulate_frame_time_domain and estimators in float32 on the
+# CPU, 256 frames at the bench config: (mean NMSE dB, σ of that mean dB), from
+# tests/test_torch_time_domain.py::test_time_domain_anchors_are_the_jax_package.
+# The card's mean must lie within TD_BAND_DB of the anchor, or 4σ of the
+# difference of the two means where that is wider.
+TD_ANCHORS_DB = {"mmse_full": (-1.248, 0.015), "ls": (4.849, 0.031),
+                 "ls:cubic": (4.569, 0.032)}
+TD_BAND_DB = 0.15
+TD_FRAMES, TD_BATCH, TD_CPU_FRAMES = 256, 64, 2
+TD_TOL = 1e-4  # card vs CPU, max |diff| over the rms, as the CPU tests hold the port to JAX
+TD_PAIRS = (("mmse_full", "linear"), ("ls", "linear"), ("ls", "cubic"))
+TD_HALO = 128
+# Trainer(mesh=...) against the meshless Trainer: phase 12's split cut to 4
+# steps of 64 frames a epoch, 2 epochs, float32 and no dropout.
+MESH_TRAIN_FRAMES, MESH_VAL_FRAMES, MESH_EPOCHS = 256, 128, 2
+MESH_RTOL = 1e-6
 
 
 def quiet(*_):
@@ -1891,6 +1921,229 @@ def evaluation_phase(dev, card, serving_results, tune_sets):
     return launches
 
 
+def per_frame_nmse(channel, h):
+    """(B,) NMSE of each frame's estimate over its own channel power."""
+    axes = tuple(range(1, channel.ndim))
+    return (channel - h).abs().pow(2).mean(dim=axes) / channel.abs().pow(2).mean(dim=axes)
+
+
+def td_estimates(dev, cfg, frames):
+    """{name: (B,) per-frame NMSE} of each of TD_PAIRS on ``frames``."""
+    from ce5g_torch.estimators import estimate_batch
+
+    out = {}
+    for est, method in TD_PAIRS:
+        h = estimate_batch(frames, cfg=cfg, estimator=est, method=method, device=dev)
+        out[est if method == "linear" else f"{est}:{method}"] = per_frame_nmse(frames.channel, h)
+    return out
+
+
+def time_domain_frames(dev, card):
+    """Phase 15 (a): TD_FRAMES time-domain frames at the bench config in
+    batches of TD_BATCH, their NMSE held to TD_ANCHORS_DB and printed beside
+    the frequency-domain path's on the same params, TD_CPU_FRAMES frames
+    against the CPU, and times and peak memory."""
+    import torch
+    from ce5g_torch.physics import (FrameDraws, FrameParams, draw_frames, simulate_batch,
+                                    simulate_batch_time_domain)
+
+    cfg, params = bench_setup(dev, TD_BATCH)
+    names = [est if m == "linear" else f"{est}:{m}" for est, m in TD_PAIRS]
+    td = {n: [] for n in names}
+    fd = {n: [] for n in names}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    fd_gen = torch.Generator(device=dev).manual_seed(16)
+    sim_ms, batch_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TD_FRAMES // TD_BATCH):
+        draws = draw_frames(gen, params, cfg, device=dev, time_domain=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frames = simulate_batch_time_domain(draws, params, cfg=cfg, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for n, v in td_estimates(dev, cfg, frames).items():
+            td[n].append(v)
+        torch.cuda.synchronize()
+        sim_ms.append((t2 - t1) * 1e3)
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(TD_FRAMES // TD_BATCH):
+        frames = simulate_batch(draw_frames(fd_gen, params, cfg, device=dev), params, cfg=cfg,
+                                device=dev)
+        for n, v in td_estimates(dev, cfg, frames).items():
+            fd[n].append(v)
+    parts = []
+    for n in names:
+        got, sigma = mean_db(torch.cat(td[n]).cpu().numpy())
+        fd_db, _ = mean_db(torch.cat(fd[n]).cpu().numpy())
+        anchor, anchor_sigma = TD_ANCHORS_DB[n]
+        band = max(TD_BAND_DB, 4 * math.hypot(sigma, anchor_sigma))
+        fail_unless(abs(got - anchor) <= band,
+                    f"time-domain {n} {got:.3f} dB within {band:.3f} dB of the JAX package's "
+                    f"{anchor:.3f} dB")
+        parts.append(f"{n} {got:.4f} (σ {sigma:.4f}; JAX {anchor:+.3f} ± {band:.3f}; frequency "
+                     f"domain {fd_db:.4f})")
+    print(f"  (a) time-domain frames, 4x4 ETU 200 Hz 10 dB 10% pilots, {TD_FRAMES} frames in "
+          f"batches of {TD_BATCH}: NMSE dB " + "; ".join(parts))
+    print(f"      {wall_s:.2f} s for {TD_FRAMES} frames and their estimates on {card}; a batch of "
+          f"{TD_BATCH}: simulated in {statistics.median(sim_ms):.1f} ms, with the three estimates "
+          f"{statistics.median(batch_ms):.1f} ms (median of {len(sim_ms)}; first "
+          f"{sim_ms[0]:.1f} / {batch_ms[0]:.1f} ms); peak memory {peak_gib:.2f} GiB")
+
+    # the same draws on the card and on the CPU
+    n = TD_CPU_FRAMES
+    small = FrameDraws(*(x[:n] for x in draws))
+    small_params = FrameParams(*(x[:n] for x in params))
+    on_card = simulate_batch_time_domain(small, small_params, cfg=cfg, device=dev)
+    on_cpu = simulate_batch_time_domain(FrameDraws(*(x.cpu() for x in small)),
+                                        FrameParams(*(x.cpu() for x in small_params)),
+                                        cfg=cfg, device="cpu")
+    errs = []
+    for field in ("channel", "rx_symbols"):
+        card_x, cpu_x = getattr(on_card, field).cpu(), getattr(on_cpu, field)
+        err = float((card_x - cpu_x).abs().max() / cpu_x.abs().pow(2).mean().sqrt())
+        fail_unless(err <= TD_TOL, f"time-domain {field} card vs CPU {err:.2e} of rms <= {TD_TOL}")
+        errs.append(f"{field} {err:.2e}")
+    print(f"      card vs CPU on {n} frames, max error of rms: " + ", ".join(errs)
+          + f" (bound {TD_TOL})")
+
+
+def parallel_layer(dev, card, tune_sets, workdir):
+    """Phase 15 (b): the parallel layer in this process, an NCCL process
+    group of world size 1 started here and destroyed however it ends."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.eval import QuickDataset
+    from ce5g_torch.parallel import (dryrun_multichip, init_process_group, make_mesh,
+                                     mesh_shape, reference_time_domain_apply,
+                                     sharded_eval_stats_fn, sharded_time_domain_apply)
+    from ce5g_torch.physics import (PROFILE_INDEX, FrameParams, draw_frames,
+                                    jakes_oscillator_params, simulate_batch, table_for)
+    from ce5g_torch.estimators import estimate_batch
+    from ce5g_torch.train import Trainer
+
+    init_process_group(dev.type)
+    try:
+        world = dist.get_world_size()
+        mesh = make_mesh(device=dev.type)
+        print(f"  (b) parallel layer: {dist.get_backend()} process group, world size {world}, "
+              f"mesh {mesh_shape(mesh)}; worlds 2 and 4 are held on the CPU under gloo "
+              "(tests/test_torch_parallel.py)")
+
+        cfg, params = bench_setup(dev, BATCH)
+        table = table_for(cfg)
+        pi = PROFILE_INDEX["ETU"]
+        gen = torch.Generator(device=dev).manual_seed(17)
+        r, t = cfg.mimo.num_rx, cfg.mimo.num_tx
+        n = cfg.ofdm.num_symbols * cfg.ofdm.samples_per_symbol
+        x = torch.complex(torch.randn((t, n), generator=gen, device=dev),
+                          torch.randn((t, n), generator=gen, device=dev))
+        angles, phases = jakes_oscillator_params(gen, len(table.delay_samples[pi]), r, t,
+                                                 cfg.channel.num_oscillators, dev)
+        amp, delays, valid = (torch.as_tensor(a, device=dev) for a in (
+            table.amp_overwrite[pi], table.delay_samples[pi], table.path_valid[pi]))
+        args = (angles, phases, 200.0, amp, delays, valid, cfg.ofdm.sampling_rate, r, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = sharded_time_domain_apply(mesh, x, *args, halo=TD_HALO)
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+        mono = reference_time_domain_apply(x, *args)
+        err = float((sharded - mono).abs().max())
+        fail_unless(tuple(sharded.shape) == (r, n // world) and err <= 2e-4,
+                    f"sharded_time_domain_apply vs reference: shape {tuple(sharded.shape)}, max "
+                    f"abs error {err:.2e} <= 2e-4")
+        print(f"      sharded_time_domain_apply, one 4x4 ETU frame (N = {n}, halo {TD_HALO}): "
+              f"max abs error {err:.2e} against reference_time_domain_apply (atol 2e-4); "
+              f"{t_sharded * 1e3:.1f} ms")
+
+        draws = draw_frames(gen, params, cfg, device=dev)
+        t0 = time.perf_counter()
+        stats = sharded_eval_stats_fn(cfg, mesh, "mmse_full", device=dev)(params, draws)
+        nmse = float(stats["nmse"])
+        t_stats = time.perf_counter() - t0
+        frames = simulate_batch(draws, params, cfg=cfg, device=dev)
+        plain = float(per_frame_nmse(frames.channel, estimate_batch(
+            frames, cfg=cfg, estimator="mmse_full", device=dev)).mean())
+        fail_unless(abs(nmse - plain) <= 2e-4 * plain,
+                    f"sharded mmse_full NMSE {nmse:.6f} within rtol 2e-4 of {plain:.6f}")
+        print(f"      sharded_eval_stats_fn(mmse_full), {BATCH} bench frames: NMSE {nmse:.6f} "
+              f"({float(stats['nmse_db']):.4f} dB), unsharded {plain:.6f} (rtol 2e-4); BER "
+              f"{float(stats['ber']):.3e}; {t_stats:.2f} s")
+
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(dev.type)
+        print(f"      dryrun_multichip: losses " + ", ".join(
+            f"{k} {v:.4f}" for k, v in dry.items() if k != "nmse")
+              + f"; mmse_full NMSE {dry['nmse']:.4f}; {time.perf_counter() - t0:.2f} s")
+
+        simo = config_from_dict(SIMO_CONFIG)
+        cfg_t = dataclasses.replace(
+            simo, model=dataclasses.replace(simo.model, cnn_dropout=0.0),
+            training=dataclasses.replace(simo.training, mixed_precision=False))
+        train = QuickDataset(tune_sets[0], MESH_TRAIN_FRAMES, cfg_t.seed)
+        val = QuickDataset(tune_sets[1], MESH_VAL_FRAMES, cfg_t.seed)
+        # cuDNN's deterministic algorithms: at world size 1 the two trainers
+        # then do the same arithmetic (the mesh's gradient average over one
+        # rank divides by 1); on its default algorithms the validation loss
+        # moved by 9e-5 relative between the two on an H100 (PERF.md §6)
+        hist = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name, kw in (("mesh", {"mesh": mesh}), ("meshless", {"device_data": False})):
+                trainer = Trainer(cfg_t, model_type="cnn", device=dev, log=quiet, **kw)
+                hist[name] = trainer.train(train, val, epochs=MESH_EPOCHS,
+                                           model_dir=os.path.join(workdir, name))["history"]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        for k in ("train_loss", "val_loss"):
+            a, b = np.asarray(hist["mesh"][k]), np.asarray(hist["meshless"][k])
+            fail_unless(np.all(np.abs(a - b) <= MESH_RTOL * np.abs(b)),
+                        f"Trainer(mesh) {k} {a} within rtol {MESH_RTOL} of the meshless {b}")
+        print(f"      Trainer(mesh=...) cnn, {MESH_EPOCHS} epochs of "
+              f"{MESH_TRAIN_FRAMES // cfg_t.training.batch_size} steps on phase 12's split: "
+              "train loss " + " / ".join(f"{v:.6f}" for v in hist["mesh"]["train_loss"])
+              + ", meshless " + " / ".join(f"{v:.6f}" for v in hist["meshless"]["train_loss"])
+              + "; validation " + " / ".join(f"{v:.6f}" for v in hist["mesh"]["val_loss"])
+              + ", meshless " + " / ".join(f"{v:.6f}" for v in hist["meshless"]["val_loss"]))
+    finally:
+        dist.destroy_process_group()
+
+
+def time_domain_phase(dev, card, tune_sets):
+    """Phase 15: (a) and (b) with the launch counters read around them,
+    then (c), each kernel they launched against its plain version on the
+    inputs (a) gave it. Returns the launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    with capturing() as cap:
+        time_domain_frames(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as workdir:
+        parallel_layer(dev, card, tune_sets, workdir)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print("  (c) kernels launched on the time-domain and parallel paths: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    fail_unless(all(v > 0 for v in launches.values()) and set(cap.args) == set(launches),
+                f"every kernel launched and captured on the time-domain path: {launches}, "
+                f"{sorted(cap.args)}")
+    hold_against_plain("time-domain path", cap.args)
+    print(f"phase 15 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -2022,6 +2275,7 @@ def main():
         training_launches, tune_sets = training_phase(dev, card, ds)
     factory_launches = factory_phase(dev, card)
     evaluation_launches = evaluation_phase(dev, card, serving_results, tune_sets)
+    time_domain_launches = time_domain_phase(dev, card, tune_sets)
     for kern in kernels:
         kern["launches_by_path"] = {"main": launches[kern["name"]],
                                     "parity": parity_launches[kern["name"]],
@@ -2029,7 +2283,8 @@ def main():
                                     "blind": blind_launches[kern["name"]],
                                     "training": training_launches[kern["name"]],
                                     "factory": factory_launches[kern["name"]],
-                                    "evaluation": evaluation_launches[kern["name"]]}
+                                    "evaluation": evaluation_launches[kern["name"]],
+                                    "time_domain": time_domain_launches[kern["name"]]}
     print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

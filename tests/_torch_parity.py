@@ -29,13 +29,16 @@ def port_cfg(jcfg):
     return tconfig.ExperimentConfig(**subs, **rest)
 
 
-def _jax_channel_draws(k_pilot, k_fade, k_noise, cfg):
+def _jax_channel_draws(k_pilot, k_fade, k_noise, cfg, time_domain=False):
     """The pilot uniforms, Jakes angles and phases and noise normals that
     ce5g_tpu draws from a frame's pilot, fade and noise keys
-    (pilots.py:52, jakes.py:42-46, mimo.py:57-62)."""
+    (pilots.py:52, jakes.py:42-46, mimo.py:57-62); with ``time_domain``
+    the noise is simulate_frame_time_domain's, (R, S·(fft+cp)) per part
+    (simulate.py:233-241)."""
     s = cfg.ofdm.num_symbols
     k = cfg.ofdm.num_used_subcarriers
     r, t, o = cfg.mimo.num_rx, cfg.mimo.num_tx, cfg.channel.num_oscillators
+    noise = (r, s * cfg.ofdm.samples_per_symbol) if time_domain else (s, r, k)
     two_pi = 2.0 * jnp.pi
     u = jax.random.uniform(k_pilot, (s * k,))
     ka, kp = jax.random.split(k_fade)
@@ -43,12 +46,12 @@ def _jax_channel_draws(k_pilot, k_fade, k_noise, cfg):
     angles = two_pi * jax.random.uniform(ka, shape, dtype=jnp.float32)
     phases = two_pi * jax.random.uniform(kp, shape, dtype=jnp.float32)
     kr, ki = jax.random.split(k_noise)
-    nr = jax.random.normal(kr, (s, r, k), jnp.float32)
-    ni = jax.random.normal(ki, (s, r, k), jnp.float32)
+    nr = jax.random.normal(kr, noise, jnp.float32)
+    ni = jax.random.normal(ki, noise, jnp.float32)
     return u, angles, phases, nr, ni
 
 
-def jax_draws(keys, cfg, orthogonal=False):
+def jax_draws(keys, cfg, orthogonal=False, time_domain=False):
     """The draws ce5g_tpu's simulate_frame makes from each key: the same
     split(key, 4) and sub-splits as physics/simulate.py:107, pilots.py:52,
     jakes.py:42-46 and mimo.py:57-62, as the port's FrameDraws."""
@@ -58,13 +61,21 @@ def jax_draws(keys, cfg, orthogonal=False):
 
     def one(key):
         k_pilot, k_tx, k_fade, k_noise = jax.random.split(key, 4)
-        u, angles, phases, nr, ni = _jax_channel_draws(k_pilot, k_fade, k_noise, cfg)
+        u, angles, phases, nr, ni = _jax_channel_draws(k_pilot, k_fade, k_noise, cfg,
+                                                       time_domain)
         phase = jax.random.uniform(
             k_tx, (s, t if orthogonal else 1, k), minval=0.0, maxval=2.0 * jnp.pi
         )
         return u, phase, angles, phases, nr, ni
 
     return FrameDraws(*(torch.tensor(np.asarray(x)) for x in jax.vmap(one)(keys)))
+
+
+def jax_td_draws(keys, cfg, orthogonal=False):
+    """The draws ce5g_tpu's simulate_frame_time_domain makes from each key
+    (simulate.py:198-241): simulate_frame's, with the noise drawn per
+    received sample."""
+    return jax_draws(keys, cfg, orthogonal, time_domain=True)
 
 
 def jax_qam_draws(keys, cfg, modulation=4):

@@ -140,7 +140,8 @@ def test_package_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['ce5g_tpu'] = None\n"
         "import ce5g_torch, ce5g_torch.convert, ce5g_torch.estimators, "
         "ce5g_torch.physics, ce5g_torch.ops.hpd_solve, ce5g_torch.ops.interp_fused, "
-        "ce5g_torch.ops.interp, ce5g_torch.eval.parity\n"
+        "ce5g_torch.ops.interp, ce5g_torch.eval.parity, ce5g_torch.parallel, "
+        "ce5g_torch.physics.ofdm\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -24,23 +24,17 @@ a frame-by-frame comparison.
 Also provides :func:`griddata_cross_check`, the NMSE delta of the
 interpolators ('linear' windowed IDW, 'cubic' Gaussian smoother are
 redesigned algorithms) against scipy.griddata on the same pilot values.
-
-    python -m ce5g_torch.eval.parity --frames 64 --results-dir DIR [--skip-scipy]
-
-writes DIR/parity_phase2.json with the keys of scripts/parity_phase2.py.
+The study's command is ``python -m ce5g_torch.cli.parity_phase2``.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import json
-from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import ExperimentConfig, load_config
+from ..config import ExperimentConfig
 from ..device import resolve_device
 from ..estimators.api import estimate_batch
 from ..physics.profiles import PROFILE_INDEX
@@ -215,48 +209,3 @@ def griddata_cross_check(
         scipy_db = float(np.mean(nmses))  # mean-of-dB, same as _nmse00_db
         out[method] = {"ours_db": ours_db, "scipy_db": scipy_db, "delta_db": ours_db - scipy_db}
     return out
-
-
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        description="Phase-2 classical-estimator parity study of the PyTorch port"
-    )
-    parser.add_argument("--frames", type=int, default=64, help="frames per cell")
-    parser.add_argument("--results-dir", required=True,
-                        help="directory for parity_phase2.json")
-    parser.add_argument("--skip-scipy", action="store_true")
-    parser.add_argument("--config", default=None, help="YAML config; defaults built-in")
-    parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
-
-    p = Phase2Parity(load_config(args.config), frames=args.frames, device=args.device)
-    print(f"comparison table ({args.frames} frames/cell)...")
-    comp = p.comparison_table()
-    print(f"interpolation table ({args.frames} frames/cell)...")
-    interp = p.interpolation_table()
-    cross = None
-    if not args.skip_scipy:
-        print("scipy.griddata cross-check...")
-        cross = griddata_cross_check(p.cfg, frames=8, device=args.device)
-
-    out = {
-        "frames_per_cell": args.frames,
-        "comparison": comp,
-        "interpolation": interp,
-        "griddata_cross_check": cross,
-        "reference": REFERENCE_PHASE2,
-    }
-    rd = Path(args.results_dir)
-    rd.mkdir(parents=True, exist_ok=True)
-    (rd / "parity_phase2.json").write_text(json.dumps(out, indent=2))
-    print("comparison avg dB: " + json.dumps(comp["avg_db"]))
-    print("interpolation avg dB: " + json.dumps(interp["avg_db"])
-          + f", wins {json.dumps(interp['wins'])}")
-    if cross:
-        print("griddata delta dB: "
-              + json.dumps({m: r["delta_db"] for m, r in cross.items()}))
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

@@ -109,7 +109,28 @@ Phases, one line each; any failure exits non-zero:
      unsharded pipeline, dryrun_multichip(), and the cnn through
      Trainer(mesh=...) against the meshless Trainer on phase 12's split; (c)
      each kernel the phase launched held against its plain version on the
-     inputs it gave it, with the launch counts.
+     inputs it gave it, with the launch counts;
+ 16. the command line, ``python -m ce5g_torch.cli.<name>``, at full width and
+     cut in depth, every command but (a) in this process through
+     ``main(argv)``: (a) quick_start at its defaults in a process of its own
+     with no --device, mmse_full < mmse < ls; (b) generate_dataset --format
+     ce5g --verify on a small SIMO split, compute_wiener for both tags and
+     train_model --wiener --evaluate for 1 epoch; (c) evaluate_models and
+     identifiable_study on the first 512 frames of phase 9's split, each
+     NMSE within 0.01 dB of phases 9 and 11 on the same frames,
+     mmse_full_blind above mmse_full_est; (e)
+     diagnose_plateau on a 512-frame 2x2 split made by generate_dataset,
+     the sum oracle within 0.1 dB of -3.01 dB; (f) pilot_optimization and
+     parity_phase2 at 8 frames a cell; (g) train_online and
+     generate_at_scale cut in depth, the card's name in
+     at_scale_generation.json; (h) visualize_channels, and its arrays card
+     against CPU on the same draws; (d) tune_hyperparameters (1 trial of 1
+     epoch) and apply_tuning (1 epoch) on (b)'s split, then
+     final_report over the phase's results, with no TPU number; each
+     kernel the phase launched held against its plain version, with the
+     launch counts; mmse_full on phase 9's first 256 frames at batches of
+     256 and of 64, per frame, with the first operation whose output the
+     batch changes; and jax not imported.
 Each phase prints its wall time. Then the wall time, one JSON line of
 per-kernel numbers, and last the device line.
 
@@ -172,6 +193,9 @@ MMSE_FULL_BOUND = {"card": 1.3e-3, "cpu": 1.2e-3}
 # Phase 9, the serving path: the 1x2 SIMO split at the JAX package's test size.
 SERVING_FRAMES = 2000
 MODEL_BATCH = 32  # evaluate_model's default, as the anchors were taken
+# evaluate_estimators' default, the batch the command line serves in: a
+# frame's mmse_full moves with the batch it is estimated in (phase 16 (c))
+ESTIMATOR_BATCH = 64
 LSTM_FRAMES = 64  # the pure LSTM has no anchor: its SIMO run stopped at epoch 5
 SERVING_MODELS = ("cnn", "resnet", "hybrid", "transformer", "cnn_wiener")
 # The JAX package's mean NMSE dB on its own 2000-frame SIMO test split
@@ -300,6 +324,26 @@ TD_HALO = 128
 # steps of 64 frames a epoch, 2 epochs, float32 and no dropout.
 MESH_TRAIN_FRAMES, MESH_VAL_FRAMES, MESH_EPOCHS = 256, 128, 2
 MESH_RTOL = 1e-6
+# Phase 16, the command line (ce5g_torch.cli) at full width, cut in depth:
+# (b) a small SIMO split; (e) a 512-frame 2x2 split whose sum oracle is held
+# to the analytic floor 10·log10(1/2) within 0.1 dB (the JAX study read
+# -3.0127 dB on 4000 frames); (f) a few frames a cell; (g) short runs. The
+# CLI's numbers on the first CLI_SERVE_FRAMES frames of phase 9's split (whole
+# batches of phases 9 and 11, so the same batches) agree with those phases'
+# per-sample results on the same frames within 0.01 dB.
+CLI_SPLIT = {"train": 512, "val": 128, "test": 256}
+CLI_CHUNK = 128
+PLATEAU_FRAMES = 512
+PLATEAU_FLOOR_DB, PLATEAU_BAND_DB = 10 * math.log10(0.5), 0.1
+CLI_AGREE_DB = 0.01
+CLI_SERVE_FRAMES = 512
+CLI_STUDY_FRAMES = 8
+CLI_ONLINE = {"samples": 2048, "batch": 256, "steps_per_dispatch": 4}
+CLI_ATSCALE = {"samples": 8192, "chunk_size": 2048, "online_samples": 4096,
+               "online_batch": 512, "steps_per_dispatch": 4, "codec_chunk": 256}
+CLI_SERVED = ("cnn", "resnet", "hybrid", "transformer", "cnn_wiener")
+CLI_STUDY_MODELS = CLI_SERVED + ("cnn_wiener_blind", "cnn_wiener_blind_online")
+VIS_TOL = 1e-4  # card vs CPU, max |diff| over the rms, as phase 15's TD_TOL
 
 
 def quiet(*_):
@@ -989,8 +1033,8 @@ def serving_path(dev, cfg, model_dir, workdir, frames, batch, model_batch, lstm_
           f"frames/s")
     t0 = time.perf_counter()
     results = {"baselines": evaluate_baselines(ds)}
-    results.update(evaluate_estimators(ds, cfg, ("ls", "mmse", "mmse_full"), batch_size=batch,
-                                       device=dev))
+    results.update(evaluate_estimators(ds, cfg, ("ls", "mmse", "mmse_full"),
+                                       batch_size=ESTIMATOR_BATCH, device=dev))
     walls["classical"] = time.perf_counter() - t0
     ev = ModelEvaluator(cfg, model_dir, results_dir=os.path.join(workdir, "results"), device=dev)
     for name in SERVING_MODELS + ("lstm",):
@@ -1123,7 +1167,8 @@ def serving_phase(dev, card, workdir):
         torch.cuda.synchronize()
         launches = read_launches()
         wall_s = time.perf_counter() - t0
-    print(f"serving path (1x2 SIMO, {SERVING_FRAMES} frames in batches of {BATCH}, models in "
+    print(f"serving path (1x2 SIMO, {SERVING_FRAMES} frames, the sidecar in batches of {BATCH}, "
+          f"the estimators of {ESTIMATOR_BATCH}, models in "
           f"batches of {MODEL_BATCH}, lstm on {LSTM_FRAMES}) in {wall_s:.2f} s: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
     print("kernels launched on the serving path: "
@@ -1212,8 +1257,8 @@ def blind_timings(dev, cfg, arrays, card):
 
 def blind_phase(dev, card, workdir, cfg, ds, ev, serving_results):
     """Phase 11: the blind serving path on phase 9's split, with the
-    launch counters read around it. Returns the launches and the
-    hpd_solve row at n = 75."""
+    launch counters read around it. Returns the launches and the blind
+    path's results, by name."""
     import torch
     from ce5g_torch.data import compute_wiener_sidecar
     from ce5g_torch.eval.evaluate import evaluate_estimators
@@ -1278,7 +1323,7 @@ def blind_phase(dev, card, workdir, cfg, ds, ev, serving_results):
           f"{row['library_ms']:.4f} ms (torch.linalg.solve)")
     blind_timings(dev, cfg, ds.arrays, card)
     print(f"phase 11 wall time: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, results
 
 
 def training_phase(dev, card, test_ds):
@@ -2144,6 +2189,384 @@ def time_domain_phase(dev, card, tune_sets):
     return launches
 
 
+def cli_run(walls, name, *argv, label=None):
+    """One command of ce5g_torch.cli run in this process through
+    ``main(argv)``, its standard output kept (and returned) and printed
+    only if it fails; its wall time goes into ``walls``."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"ce5g_torch.cli.{name}").main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main([str(a) for a in argv])
+    except BaseException:
+        print(f"  {name} failed; its output ends:\n" + out.getvalue()[-4000:])
+        raise
+    walls[label or name] = time.perf_counter() - t0
+    fail_unless(rc == 0, f"{name} exit code {rc}")
+    return out.getvalue()
+
+
+def _json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def quick_start_subprocess(workdir):
+    """(a) ``python -m ce5g_torch.cli.quick_start --no-plots --results-dir
+    W`` in a process of its own with no --device: its default reaches the
+    card. Returns {label: NMSE dB} and the wall time."""
+    import re
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = subprocess.run(
+        [sys.executable, "-m", "ce5g_torch.cli.quick_start", "--no-plots", "--results-dir",
+         os.path.join(workdir, "quick_start")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stdout[-2000:] + out.stderr[-4000:])
+    fail_unless(out.returncode == 0, f"quick_start exit code {out.returncode}")
+    fail_unless("device cuda" in out.stdout, "quick_start ran on the card by default")
+    db = {m.group(1).strip(): float(m.group(2))
+          for m in re.finditer(r"^\s*(.+?): NMSE\s+(-?[\d.]+) dB", out.stdout, re.MULTILINE)}
+    fail_unless(set(db) == {"LS", "MMSE (diag)", "MMSE (Wiener)"}, f"quick_start NMSEs: {db}")
+    fail_unless(db["MMSE (Wiener)"] < db["MMSE (diag)"] < db["LS"],
+                f"quick_start ordering mmse_full < mmse < ls: {db}")
+    return db, wall
+
+
+def _prefix_db(result, n):
+    """Mean NMSE in dB of the first ``n`` frames of a phase's result (an
+    evaluate_* result with its per-sample NMSE, or that list itself)."""
+    if isinstance(result, dict):
+        result = result["per_sample"] if "per_sample" in result else result["per_sample_nmse"]
+    return 10 * math.log10(sum(result[:n]) / n + 1e-12)
+
+
+def _agree(what, got, phase_db, phase):
+    fail_unless(abs(got - phase_db) <= CLI_AGREE_DB,
+                f"{what} {got:.4f} dB within {CLI_AGREE_DB} dB of phase {phase}'s "
+                f"{phase_db:.4f} dB")
+    return f"{what} {got:.4f} (phase {phase} {phase_db:.4f})"
+
+
+def visualize_card_vs_cpu(dev):
+    """(h) visualize_channels' arrays on the card against the CPU from the
+    same draws (made on the CPU), max |diff| within VIS_TOL of each
+    array's rms."""
+    import numpy as np
+    import torch
+    from ce5g_torch.cli import visualize_channels as vc
+    from ce5g_torch.config import ExperimentConfig
+
+    cpu = torch.device("cpu")
+    cfg = ExperimentConfig()
+    draws = {}
+
+    def draws_for(c):
+        return draws.setdefault(c, vc.seeded_draws(c, cpu))
+
+    card, host = (vc.channel_arrays(cfg, 20.0, where, draws_for) for where in (dev, cpu))
+    worst = 0.0
+    for part in ("heatmaps", "doppler", "autocorrelation"):
+        fail_unless(card[part].keys() == host[part].keys(), f"visualize {part} keys")
+        for key, ref in host[part].items():
+            rms = float(np.sqrt(np.mean(ref ** 2)))
+            err = float(np.max(np.abs(card[part][key] - ref))) / rms
+            fail_unless(err <= VIS_TOL, f"visualize {part} {key} card vs CPU {err:.2e} of rms")
+            worst = max(worst, err)
+    shapes = {part: next(iter(card[part].values())).shape for part in card}
+    print(f"  (h) visualize_channels' arrays card vs CPU on the same draws: max error "
+          f"{worst:.2e} of rms (bound {VIS_TOL}); shapes {shapes}")
+
+
+def batch_dependence(dev, ds):
+    """mmse_full on the first BATCH frames of phase 9's split, in one
+    batch of BATCH and in batches of ESTIMATOR_BATCH: per frame, the
+    largest |difference| over the frame's rms and the change of its NMSE
+    in dB; and, from every operation's output for the first
+    ESTIMATOR_BATCH frames in both runs (aten operations through a
+    TorchDispatchMode, and the HPD kernel's output), the first that
+    differs: where the batch enters a frame's estimate. Run outside the
+    launch counts."""
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import ce5g_torch.estimators.mmse as mmse_est
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.estimators import estimate_batch
+    from ce5g_torch.eval.evaluate import _frames_from_arrays, _nmse_per_sample
+    from ce5g_torch.physics.simulate import table_for
+
+    cfg = config_from_dict(SIMO_CONFIG)
+    table = table_for(cfg)
+    big, small = BATCH, ESTIMATOR_BATCH
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            if isinstance(first, torch.Tensor) and "empty" not in str(func):
+                shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+                self.outs.append((str(func), shapes, first.detach().clone()))
+            return out
+
+    def estimate(start, n, rec=None):
+        frames = _frames_from_arrays(ds.arrays, np.arange(start, start + n), cfg, dev)
+        if rec is None:
+            return estimate_batch(frames, cfg=cfg, estimator="mmse_full", table=table, device=dev)
+        real = mmse_est.hpd_solve
+
+        def noted(gram, rhs):
+            z = real(gram, rhs)
+            rec.outs.append(("hpd_solve kernel", [tuple(gram.shape), tuple(rhs.shape)], z))
+            return z
+
+        mmse_est.hpd_solve = noted
+        try:
+            with rec:
+                return estimate_batch(frames, cfg=cfg, estimator="mmse_full", table=table,
+                                      device=dev)
+        finally:
+            mmse_est.hpd_solve = real
+
+    h_big = estimate(0, big).cpu().numpy().astype(np.complex128)
+    h_small = np.concatenate([estimate(i, small).cpu().numpy().astype(np.complex128)
+                              for i in range(0, big, small)])
+    truth = ds.arrays["H_true"][:big]
+    diff = np.abs(h_big - h_small).reshape(big, -1).max(1)
+    rms = np.sqrt(np.mean(np.abs(h_small.reshape(big, -1)) ** 2, 1))
+    db = 10 * np.log10(_nmse_per_sample(truth, h_big)) - 10 * np.log10(
+        _nmse_per_sample(truth, h_small))
+    worst = int(np.argmax(np.abs(db)))
+    mean_db = 10 * np.log10(_nmse_per_sample(truth, h_big).mean()) - 10 * np.log10(
+        _nmse_per_sample(truth, h_small).mean())
+
+    rec_big, rec_small = Record(), Record()
+    estimate(0, big, rec_big)
+    estimate(0, small, rec_small)
+    fail_unless([n for n, _, _ in rec_big.outs] == [n for n, _, _ in rec_small.outs],
+                "the same operations at both batch sizes")
+    first, compared = None, 0
+    for (name, shapes, a), (_, _, b) in zip(rec_big.outs, rec_small.outs):
+        if a.shape[1:] == b.shape[1:] and a.ndim and a.shape[0] == b.shape[0] * big // small:
+            a = a[:b.shape[0]]
+        elif a.shape != b.shape:
+            continue
+        compared += 1
+        both_nan = (a.isnan() & b.isnan()) if a.is_floating_point() or a.is_complex() else False
+        if not bool(((a == b) | both_nan).all()):
+            rel = math.nan
+            if a.is_floating_point() or a.is_complex():
+                rel = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+            first = (name, shapes, rel)
+            break
+    where = ("none" if first is None else
+             f"{first[0]} on {first[1]} (largest |difference| {first[2]:.2e} of its largest value)")
+    print(f"  (c) mmse_full per frame, the first {big} frames of phase 9's split in one batch of "
+          f"{big} and in batches of {small}: {int((diff > 0).sum())} frames differ, the largest "
+          f"|difference| {float((diff / rms).max()):.2e} of a frame's rms; a frame's NMSE moves "
+          f"up to {abs(db[worst]):.4f} dB (frame {worst}: {float(ds.arrays['snr_db'][worst]):.0f} "
+          f"dB, density {float(ds.arrays['pilot_density'][worst]):.2f}), the mean by "
+          f"{mean_db:+.4f} dB; the first of {compared} outputs compared that differs: {where}")
+
+
+def cli_phase(dev, card, workdir, ds, serving_results, blind_results):
+    """Phase 16: the command line, (a)-(h), on phase 9's split ``ds`` and
+    its sidecars (in ``workdir``), the committed models/ and models_simo/
+    checkpoints, and splits it makes itself; every command but (a) in this
+    process, with the launch counters read around them and each kernel
+    they launched held against its plain version; then mmse_full's
+    dependence on the batch (:func:`batch_dependence`). Returns the
+    launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def run(name, *argv, label=None):
+        return cli_run(walls, name, *argv, label=label)
+
+    simo = os.path.join(REPO, "configs", "simo_identifiable.yaml")
+    mimo = os.path.join(REPO, "configs", "experiment_config.yaml")
+    models, models_simo = os.path.join(REPO, "models"), os.path.join(REPO, "models_simo")
+    print("phase 16, the command line: full-width configs (14 x 599 grids, 1x2 SIMO and 2x2), "
+          f"cut in depth: (b) a SIMO split of {CLI_SPLIT} frames and 1 epoch; (c) the first "
+          f"{CLI_SERVE_FRAMES} of phase 9's {SERVING_FRAMES} frames, lstm left out; (d) 1 trial of 1 epoch on (b)'s split, "
+          f"the winner retrained 1 epoch; (e) a 2x2 split of {PLATEAU_FRAMES} frames; (f) "
+          f"{CLI_STUDY_FRAMES} frames a cell; (g) online {CLI_ONLINE}, at scale {CLI_ATSCALE}")
+    qs_db, walls["quick_start (process)"] = quick_start_subprocess(workdir)
+    print("  (a) quick_start (EVA 50 Hz 15 dB 10%, its own process, default device): "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in qs_db.items())
+          + "; mmse_full < mmse < ls: ok")
+
+    res = os.path.join(workdir, "cli_results")
+    out_models = os.path.join(workdir, "cli_models")
+    torch.cuda.synchronize()
+    reset_launches()
+    with capturing() as cap:
+        # (b) the factory, the sidecars and training on a small SIMO split
+        small = os.path.join(workdir, "cli_simo")
+        text = run("generate_dataset", "--config", simo, "--output-dir", small, "--format",
+                   "ce5g", "--verify", "--chunk-size", CLI_CHUNK,
+                   *itertools.chain.from_iterable((f"--{k}-samples", v)
+                                                  for k, v in CLI_SPLIT.items()))
+        fail_unless(all(f"verify {k}: PASS" in text for k in CLI_SPLIT),
+                    f"generate_dataset verified every split: {text[-300:]}")
+        run("compute_wiener", "--config", simo, "--data-dir", small, label="compute_wiener wiener")
+        run("compute_wiener", "--config", simo, "--data-dir", small, "--estimator",
+            "mmse_full_est", "--splits", "test", label="compute_wiener bwiener")
+        run("train_model", "--config", simo, "--data-dir", small, "--model-dir", out_models,
+            "--model", "cnn", "--epochs", 1, "--wiener", "--evaluate", "--results-dir", res)
+        trained = _json(os.path.join(res, "cnn_wiener_test_results.json"))
+        fail_unless(math.isfinite(trained["nmse_db"]) and trained["num_samples"] == CLI_SPLIT["test"],
+                    f"train_model --evaluate scored the test split: {trained}")
+        print(f"  (b) generate_dataset {CLI_SPLIT} (.ce5g, verify PASS), compute_wiener "
+              f"wiener + bwiener, train_model cnn --wiener 1 epoch: {trained['nmse_db']:.4f} dB "
+              f"on {trained['num_samples']} frames")
+
+        # (c) evaluation and the SIMO study on phase 9's split, its first frames
+        n = CLI_SERVE_FRAMES
+        run("evaluate_models", "--config", simo, "--data-dir", workdir, "--model-dir", models_simo,
+            "--results-dir", res, "--models", *CLI_SERVED, "--num-samples", n, "--no-plots")
+        ev = _json(os.path.join(res, "evaluation_results.json"))
+        fail_unless(all(ev[k]["num_samples"] == n for k in ("mmse_full",) + CLI_SERVED),
+                    f"evaluate_models served the first {n} frames")
+        parts = [_agree(name, ev[name]["nmse_db"], _prefix_db(serving_results[name], n), 9)
+                 for name in ("ls", "mmse", "mmse_full") + CLI_SERVED]
+        parts.append(_agree("LS (stored)", ev["LS"]["nmse_db"],
+                            _prefix_db(serving_results["baselines"]["per_sample"]["LS"], n), 9))
+        print(f"  (c) evaluate_models on phase 9's first {n} frames, NMSE dB: " + ", ".join(parts))
+        run("identifiable_study", "--config", simo, "--data-dir", workdir, "--model-dir",
+            models_simo, "--results-dir", res, "--num-samples", n, "--models", *CLI_STUDY_MODELS)
+        study = _json(os.path.join(res, "identifiable_study.json"))
+        fail_unless(study["num_samples"] == n, f"identifiable_study served the first {n} frames")
+        study = study["overall_db"]
+        fail_unless(set(study) == {"ls_stored", "mmse", "mmse_full", "mmse_full_est",
+                                   "mmse_full_blind", *CLI_STUDY_MODELS},
+                    f"identifiable_study's methods: {sorted(study)}")
+        parts = [_agree(name, study[name], _prefix_db(serving_results[name], n), 9)
+                 for name in ("mmse", "mmse_full") + CLI_SERVED]
+        parts += [_agree(name, study[name], _prefix_db(blind_results[name], n), 11)
+                  for name in ("mmse_full_est", "cnn_wiener_blind", "cnn_wiener_blind_online")]
+        fail_unless(study["mmse_full_blind"] > study["mmse_full_est"],
+                    f"mmse_full_blind {study['mmse_full_blind']:.3f} above mmse_full_est "
+                    f"{study['mmse_full_est']:.3f} dB")
+        print(f"  (c) identifiable_study on phase 9's first {n} frames, NMSE dB: "
+              + ", ".join(parts)
+              + f"; mmse_full_blind {study['mmse_full_blind']:.4f} above mmse_full_est "
+              f"{study['mmse_full_est']:.4f} (the JAX study: -5.59 against -13.16)")
+
+        # (e) the superposition floor on a 2x2 split made by generate_dataset
+        plateau = os.path.join(workdir, "cli_mimo")
+        run("generate_dataset", "--config", mimo, "--output-dir", plateau, "--format", "ce5g",
+            "--train-samples", 0, "--val-samples", 0, "--test-samples", PLATEAU_FRAMES,
+            label="generate_dataset 2x2")
+        run("compute_wiener", "--config", mimo, "--data-dir", plateau, "--splits", "test",
+            label="compute_wiener 2x2")
+        run("diagnose_plateau", "--config", mimo, "--data-dir", plateau, "--model-dir", models,
+            "--results-dir", res, "--models", "cnn", "resnet", "cnn_wiener")
+        diag = _json(os.path.join(res, "plateau_diagnosis.json"))
+        oracle = diag["full_tensor_db"]["sum_oracle"]
+        fail_unless(abs(oracle - PLATEAU_FLOOR_DB) <= PLATEAU_BAND_DB,
+                    f"sum oracle {oracle:.4f} dB within {PLATEAU_BAND_DB} dB of "
+                    f"{PLATEAU_FLOOR_DB:.4f} dB")
+        fail_unless(set(diag["by_channel_type"]["sum_oracle"]) == {"EPA", "EVA", "ETU"},
+                    f"by_channel_type keys: {diag['by_channel_type']['sum_oracle']}")
+        print(f"  (e) diagnose_plateau on {PLATEAU_FRAMES} 2x2 frames: sum oracle {oracle:.4f} dB "
+              f"(analytic {PLATEAU_FLOOR_DB:.4f}), mmse_full "
+              f"{diag['full_tensor_db']['mmse_full']:.4f}, slice basis "
+              + ", ".join(f"{k} {v:.3f}" for k, v in diag["slice00_db"].items()))
+
+        # (f) the two studies at a few frames a cell
+        run("pilot_optimization", "--config", mimo, "--frames", CLI_STUDY_FRAMES, "--models",
+            "cnn", "cnn_wiener", "--model-dir", models, "--data-dir", plateau,
+            "--simo-ber-config", simo, "--ber-frames", CLI_STUDY_FRAMES, "--results-dir", res)
+        pilot = _json(os.path.join(res, "pilot_optimization_results.json"))
+        fail_unless({"results", "recommendation", "model_sweep", "ber_identifiable"} <= set(pilot),
+                    f"pilot_optimization's sections: {sorted(pilot)}")
+        run("parity_phase2", "--frames", CLI_STUDY_FRAMES, "--results-dir", res)
+        par = _json(os.path.join(res, "parity_phase2.json"))
+        fail_unless(os.path.exists(os.path.join(res, "parity_phase2.md"))
+                    and all(math.isfinite(v) for v in par["comparison"]["avg_db"].values()),
+                    "parity_phase2 wrote its table and finite averages")
+        print(f"  (f) pilot_optimization ({CLI_STUDY_FRAMES} frames a cell): best densities "
+              + json.dumps({k: v["best_density"] for k, v in pilot["recommendation"].items()})
+              + f"; parity_phase2 ({CLI_STUDY_FRAMES} frames a cell): averages "
+              + json.dumps({k: round(v, 3) for k, v in par["comparison"]["avg_db"].items()}))
+
+        # (g) online training and the factory at scale, cut in depth
+        run("train_online", "--config", simo, "--model", "cnn", "--wiener-estimator",
+            "mmse_full_est", "--loss", "nmse", "--samples", CLI_ONLINE["samples"], "--batch",
+            CLI_ONLINE["batch"], "--steps-per-dispatch", CLI_ONLINE["steps_per_dispatch"],
+            "--name", "cnn_wiener_blind_online", "--model-dir", out_models)
+        online = _json(os.path.join(out_models, "cnn_wiener_blind_online_history.json"))
+        run("generate_at_scale", "--config", mimo, "--output-dir",
+            os.path.join(workdir, "cli_atscale"), "--results-dir", res,
+            *itertools.chain.from_iterable((f"--{k.replace('_', '-')}", v)
+                                           for k, v in CLI_ATSCALE.items()))
+        ats = _json(os.path.join(res, "at_scale_generation.json"))
+        fail_unless(card.split(",")[0] in ats["backend"],
+                    f"at_scale_generation.json names the card: {ats['backend']}")
+        fail_unless(ats["digest_run"]["verify_pass"], "the at-scale digest chunk verifies")
+        fail_unless(all(math.isfinite(ats[k]["last_loss"]) for k in
+                        ("online_train", "online_train_bf16")), "online losses finite")
+        print(f"  (g) train_online blind, {online['total_samples']} samples: loss "
+              f"{online['first_loss']:.4f} -> {online['last_loss']:.4f}; generate_at_scale on "
+              f"{ats['backend']}: {ats['digest_run']['samples']} frames digested at "
+              f"{ats['digest_run']['device_samples_per_second']:.0f} samples/s (verify PASS), "
+              f"online float32 {ats['online_train']['end_to_end_samples_per_second']:.0f} / bf16 "
+              f"{ats['online_train_bf16']['end_to_end_samples_per_second']:.0f} samples/s, codec "
+              f"{ats['codec_write']['write_mb_per_s']:.0f} MB/s")
+
+        # (h) the channel figures' arrays
+        run("visualize_channels", "--results-dir", res, "--no-plots")
+        visualize_card_vs_cpu(dev)
+
+        # (d) the search, its winner and the final report over the phase's results
+        run("tune_hyperparameters", "--config", simo, "--data-dir", small, "--results-dir",
+            res, "--trials", 1, "--epochs", 1, "--quick-train", CLI_SPLIT["train"],
+            "--quick-val", CLI_SPLIT["val"])
+        run("apply_tuning", "--config", simo, "--data-dir", small, "--model-dir", out_models,
+            "--results-dir", res, "--epochs", 1)
+        tuned = _json(os.path.join(res, "cnn_tuned_test_results.json"))
+        run("final_report", "--results-dir", res, "--model-dir", out_models, "--study-dir", res,
+            "--no-plots")
+        with open(os.path.join(res, "FINAL_REPORT.md")) as f:
+            report = f.read()
+        fail_unless("BENCH_r" not in report and "Throughput" not in report
+                    and "Roofline" not in report, "the final report carries no TPU number")
+        fail_unless("| cnn_tuned |" in report and "Information floor" in report,
+                    "the final report's headline reads the phase's results")
+        print(f"  (d) tune_hyperparameters 1 trial, apply_tuning 1 epoch: cnn_tuned "
+              f"{tuned['nmse_db']:.4f} dB on {tuned['num_samples']} frames; final_report "
+              f"{len(report)} characters, no BENCH_r, throughput or roofline line")
+        torch.cuda.synchronize()
+        launches = read_launches()
+    print("  kernels launched by the command line in this process: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    fail_unless(all(n > 0 for n in launches.values()) and set(cap.args) == set(launches),
+                f"every kernel launched and captured on the command line: {launches}, "
+                f"{sorted(cap.args)}")
+    hold_against_plain("command line", cap.args)
+    batch_dependence(dev, ds)
+    fail_unless("jax" not in sys.modules, "jax is not imported")
+    print(f"  commands: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    print(f"phase 16 wall time: {time.perf_counter() - t_phase:.1f} s; jax not imported")
+    return launches
+
+
 def main():
     import torch
 
@@ -2265,17 +2688,19 @@ def main():
           f"{parity_s:.3f} s")
     where_a_batch_goes(dev, gen, cfg, params, rates)
     # the serving split (≈1.1 GB of arrays in .ce5g chunks, with its two
-    # sidecars) is removed however phases 9-12 end
+    # sidecars) is removed however phases 9-16 end
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as workdir:
         t0 = time.perf_counter()
         serving_launches, ev, ds, serving_results = serving_phase(dev, card, workdir)
         where_a_serving_batch_goes(ev, ds, MODEL_BATCH)
         print(f"phases 9-10 wall time: {time.perf_counter() - t0:.1f} s")
-        blind_launches = blind_phase(dev, card, workdir, ev.cfg, ds, ev, serving_results)
+        blind_launches, blind_results = blind_phase(dev, card, workdir, ev.cfg, ds, ev,
+                                                    serving_results)
         training_launches, tune_sets = training_phase(dev, card, ds)
-    factory_launches = factory_phase(dev, card)
-    evaluation_launches = evaluation_phase(dev, card, serving_results, tune_sets)
-    time_domain_launches = time_domain_phase(dev, card, tune_sets)
+        factory_launches = factory_phase(dev, card)
+        evaluation_launches = evaluation_phase(dev, card, serving_results, tune_sets)
+        time_domain_launches = time_domain_phase(dev, card, tune_sets)
+        cli_launches = cli_phase(dev, card, workdir, ds, serving_results, blind_results)
     for kern in kernels:
         kern["launches_by_path"] = {"main": launches[kern["name"]],
                                     "parity": parity_launches[kern["name"]],
@@ -2284,7 +2709,8 @@ def main():
                                     "training": training_launches[kern["name"]],
                                     "factory": factory_launches[kern["name"]],
                                     "evaluation": evaluation_launches[kern["name"]],
-                                    "time_domain": time_domain_launches[kern["name"]]}
+                                    "time_domain": time_domain_launches[kern["name"]],
+                                    "cli": cli_launches[kern["name"]]}
     print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

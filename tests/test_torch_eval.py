@@ -97,18 +97,26 @@ def test_griddata_cross_check_runs(small_study):
 
 
 def test_main_writes_the_scripts_json(tmp_path):
-    """``python -m ce5g_torch.eval.parity`` writes the keys of
-    scripts/parity_phase2.py, here on a small YAML numerology."""
+    """``python -m ce5g_torch.cli.parity_phase2`` writes the keys of
+    scripts/parity_phase2.py and its markdown table, here on a small YAML
+    numerology."""
+    from ce5g_torch.cli import parity_phase2
+
     config = tmp_path / "small.yaml"
     config.write_text(
         "ofdm: {fft_size: 64, cp_length: 8, num_symbols: 6, useful_subcarriers: 40}\n"
     )
     out = tmp_path / "out"
-    rc = tparity.main(["--frames", "1", "--results-dir", str(out), "--skip-scipy",
-                       "--config", str(config), "--device", "cpu"])
+    rc = parity_phase2.main(["--frames", "1", "--results-dir", str(out), "--skip-scipy",
+                             "--config", str(config), "--device", "cpu"])
     assert rc == 0
     d = json.loads((out / "parity_phase2.json").read_text())
     assert set(d) == {"frames_per_cell", "comparison", "interpolation",
                       "griddata_cross_check", "reference"}
     assert d["frames_per_cell"] == 1 and d["griddata_cross_check"] is None
     assert d["reference"] == tparity.REFERENCE_PHASE2
+    md = (out / "parity_phase2.md").read_text()
+    assert md == parity_phase2.markdown(d)
+    assert "Ours: 1 frames/cell" in md and "scipy.griddata" not in md
+    for snr in d["comparison"]["per_snr"]:
+        assert f"| {snr} |" in md

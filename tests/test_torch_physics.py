@@ -135,17 +135,21 @@ def test_entry_points_need_cuda_or_cpu(small_cfg):
 
 
 def test_package_imports_without_jax():
-    """The port imports with JAX unavailable, and no source names ce5g_tpu."""
+    """The port, its command line included, imports with JAX unavailable,
+    and no source names jax, ce5g_tpu or the JAX package's scripts."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ce5g_tpu'] = None\n"
         "import ce5g_torch, ce5g_torch.convert, ce5g_torch.estimators, "
         "ce5g_torch.physics, ce5g_torch.ops.hpd_solve, ce5g_torch.ops.interp_fused, "
         "ce5g_torch.ops.interp, ce5g_torch.eval.parity, ce5g_torch.parallel, "
         "ce5g_torch.physics.ofdm\n"
+        "from ce5g_torch.cli import MODULES\n"
+        "import importlib; [importlib.import_module('ce5g_torch.cli.' + m) for m in MODULES]\n"
+        "assert len(MODULES) == 15\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
-    banned = re.compile(r"^\s*(from|import)\s+(jax|ce5g_tpu)\b", re.MULTILINE)
-    for src in (REPO / "ce5g_torch").rglob("*.py"):
+    banned = re.compile(r"^\s*(from|import)\s+(jax|ce5g_tpu|scripts|_common)\b", re.MULTILINE)
+    for src in [*(REPO / "ce5g_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         assert not banned.search(src.read_text()), src

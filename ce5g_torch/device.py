@@ -12,9 +12,9 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """Return ``torch.device(device)``, raising if it is CUDA and no card
     is present. On CUDA it also pins float32 matmuls to full precision:
-    the Woodbury solve in ``estimators.mmse`` relies on an exact
-    cancellation, (h − Φ·sol)/σ², which TF32's 10-bit mantissa destroys
-    (the JAX package saw +5 dB NMSE without full precision). cuDNN's
+    the Woodbury system of ``estimators.mmse`` is conditioned by 1/σ², which
+    TF32's 10-bit mantissa does not resolve at high SNR (the JAX package saw
+    +5 dB NMSE without full precision). cuDNN's
     convolutions and LSTMs are kept in full float32 too: the models run at
     the JAX package's default float32 until TF32 or bf16 is measured."""
     dev = torch.device(device)

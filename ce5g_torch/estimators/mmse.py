@@ -18,15 +18,27 @@ Port of ``ce5g_tpu.estimators.mmse``.
    solved through the Woodbury identity as one (paths·m)×(paths·m) HPD
    system per frame (m = time rank), all frames in one batched solve
    (``ops.hpd_solve``). The pilot sums are masked grid sums, so no pilot
-   gather is needed (see the JAX module for the derivation).
+   gather is needed (see the JAX module for the derivation). The JAX
+   module then forms the pilot-space vector (e − corr)/σ² and projects it
+   back; at high SNR that is a difference of nearly equal vectors over a
+   small σ², which multiplies float32 rounding by about 1/σ². The port
+   solves the same filter by the push-through identity, Ĥ = (V⊗√w)z·F/√T
+   with z the HPD solve's solution, which has no such difference. It
+   assembles the Woodbury system in float64 and refines the kernel's
+   solution once: in float32 the rounding of E and D (whose matmuls' order
+   depends on the batch's rows on the card) reached a frame's estimate
+   amplified by the system's condition.
 
 The Wiener-prior API (``WienerPrior``, ``build_wiener_prior``,
 ``wiener_solve``, ``wiener_reconstruct``) is the same filter in its
 explicit pilot-axis form for one frame, and ``estimate_covariance`` the
 reference's sample covariance (baseline_estimators.py:137-153).
+``wiener_solve`` returns the pilot-space vector x = (h − Φ·sol)/σ² itself,
+as the JAX package's does, so it keeps that difference: in float32 at
+high SNR its x, and ``wiener_reconstruct``'s Ĥ from it, carry rounding of
+order eps/σ².
 
-Precision: the Woodbury path relies on the exact cancellation
-(h − Φ·sol)/σ²; the entry points pin float32 matmuls to full precision
+Precision: the entry points pin float32 matmuls to full precision
 (``device.resolve_device``).
 """
 from __future__ import annotations
@@ -211,8 +223,8 @@ def estimate_covariance(h_ls):
 class FTables(NamedTuple):
     """Packed all-profile delay→bin tables for the E and D contractions."""
 
-    w_e: torch.Tensor  # (2K, 2·C·P) float32
-    w_d: torch.Tensor  # (K, 2·C·P·P) float32
+    w_e: torch.Tensor  # (2K, 2·C·P) float64
+    w_d: torch.Tensor  # (K, 2·C·P·P) float64
     num_profiles: int
     num_paths: int
 
@@ -238,19 +250,17 @@ def build_f_tables(f_table: np.ndarray, device) -> FTables:
             np.concatenate([fit, frt], axis=1),  # gi rows
         ],
         axis=0,
-    ).astype(np.float32)
+    )
     a_re = np.einsum("cpk,cqk->kcpq", np.real(ft), np.real(ft)) + np.einsum(
         "cpk,cqk->kcpq", np.imag(ft), np.imag(ft)
     )
     a_im = np.einsum("cpk,cqk->kcpq", np.real(ft), np.imag(ft)) - np.einsum(
         "cpk,cqk->kcpq", np.imag(ft), np.real(ft)
     )
-    w_d = np.concatenate(
-        [a_re.reshape(k_num, -1), a_im.reshape(k_num, -1)], axis=1
-    ).astype(np.float32)
+    w_d = np.concatenate([a_re.reshape(k_num, -1), a_im.reshape(k_num, -1)], axis=1)
     return FTables(
-        torch.as_tensor(w_e, device=device),
-        torch.as_tensor(w_d, device=device),
+        torch.as_tensor(w_e, dtype=torch.float64, device=device),
+        torch.as_tensor(w_d, dtype=torch.float64, device=device),
         c_num,
         p_num,
     )
@@ -290,6 +300,19 @@ def mmse_full_estimate(
             per-frame profile select (mmse.py:324-368); without them they
             are per-frame contractions with ``freq_matrix`` (:369-376).
 
+    The HPD solve gives z = gram⁻¹·Lᴴe with L = √T·(V⊗√w), gram = σ²I +
+    LᴴDL. The JAX package then computes x = (e − DLz)/σ² and Ĥ =
+    R_t·x·w·F = (1/T)·L·Lᴴx·F. Since Lᴴx = (Lᴴe − (gram − σ²I)z)/σ² = z
+    exactly, the port computes Ĥ = L·z·F/T: the same filter without the
+    difference of nearly equal vectors, whose float32 rounding grows as
+    1/σ² (tests/test_torch_woodbury.py). E, D, the time prior, gram and
+    Lᴴe are computed in float64 (the estimate's rounding of E and D would
+    otherwise reach z amplified by gram's condition, and move with the
+    batch where a matmul's reduction order does); ``ops.hpd_solve`` solves
+    gram rounded to the inputs' precision, and one step of iterative
+    refinement with the residual in float64 takes z to float64 accuracy.
+    The estimate itself is then rounded only by the final products.
+
     Returns:
         (B, S, R, T, K) complex, identical along T (the superposition
         observation cannot separate TX antennas). complex64 for complex64
@@ -298,10 +321,11 @@ def mmse_full_estimate(
         the reference that the card's float32 result is held to.
     """
     dev = rx_symbols.device
-    real = rx_symbols.real.dtype
+    out = rx_symbols.dtype  # of the HPD solve and the estimate
+    real, wide = torch.float64, torch.complex128  # of the Woodbury system
     m = pilot_mask.to(real)  # (B, S, K)
     b, s, k = m.shape
-    g = masked_ls_grid(rx_symbols, tx_grid, m)  # (B, R, S, K)
+    g = masked_ls_grid(rx_symbols, tx_grid, m).to(wide)  # (B, R, S, K)
     r_rx = g.shape[1]
 
     n_paths = amp.shape[-1]
@@ -310,7 +334,8 @@ def mmse_full_estimate(
     t_scale = float(num_tx)
 
     # Time prior factor V with V·Vᵀ ≈ R_t = J0(2π fd Δs T_sym), ridge scaled
-    # to the trace so it stays positive definite in float32.
+    # to the trace as the JAX package's (which keeps it positive definite in
+    # float32).
     fd = torch.as_tensor(doppler_hz, dtype=real, device=dev)
     ds = torch.arange(s, dtype=real, device=dev)
     rt = bessel_j0(
@@ -327,7 +352,7 @@ def mmse_full_estimate(
         ridge = 1e-4 * (rt.diagonal(dim1=-2, dim2=-1).sum(-1) / s) + 1e-6
         v = torch.linalg.cholesky(rt + ridge[:, None, None] * torch.eye(s, dtype=real, device=dev))
 
-    f = freq_matrix  # (B, P, K) complex
+    f = freq_matrix.to(wide)  # (B, P, K)
     if f_tables is not None and profile_idx is not None:
         pidx = torch.as_tensor(profile_idx, device=dev).long()
         rows = torch.arange(b, device=dev)
@@ -361,17 +386,16 @@ def mmse_full_estimate(
 
     sqrt_t = math.sqrt(t_scale)
     ph = sqrt_t * torch.einsum("bsm,brsp->brpm", v.to(e.dtype), e) * sw[:, None, :, None]
-    rhs = ph.reshape(b, r_rx, r_dim).transpose(1, 2).contiguous()  # (B, r, R)
-    z = hpd_solve(gram.contiguous(), rhs)
+    rhs = ph.reshape(b, r_rx, r_dim).transpose(1, 2)  # (B, r, R)
+    # the kernel in the estimate's precision, one step of iterative
+    # refinement with the residual in float64
+    gram_lo = gram.to(out).contiguous()
+    z = hpd_solve(gram_lo, rhs.to(out).contiguous()).to(wide)
+    z = z + hpd_solve(gram_lo, (rhs - gram @ z).to(out).contiguous()).to(wide)
     sol = z.transpose(1, 2).reshape(b, r_rx, n_paths, mt)  # (B, R, P(q), m(n))
 
-    solw = sol * sw[:, None, :, None]
-    sol_sq = torch.einsum("bsn,brqn->brsq", v.to(d.dtype), solw)  # (B, R, S, P)
-    corr = sqrt_t * torch.einsum("bspq,brsq->brsp", d, sol_sq)
-    t1 = (e - corr) / sigma2[:, None, None, None]  # (B, R, S, P)
-
-    rt_full = v @ v.transpose(1, 2)  # PSD-clamped R_t
-    t2 = torch.einsum("bzs,brsp->bzrp", rt_full.to(t1.dtype), t1)
-    t2 = t2 * w_path[:, None, None, :]
-    h_full = packed_complex_matmul(t2, f)  # (B, S, R, K)
+    # Ĥ = L·z·F/T by the push-through identity (see the docstring)
+    solw = sol * (sw / sqrt_t)[:, None, :, None]
+    h_sp = torch.einsum("bsn,brqn->bsrq", v.to(wide), solw)  # (B, S, R, P)
+    h_full = packed_complex_matmul(h_sp.to(out), freq_matrix)  # (B, S, R, K)
     return h_full[:, :, :, None, :].expand(b, s, r_rx, num_tx, k)

@@ -146,3 +146,42 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def woodbury_mmse_full(rx_symbols, tx_grid, pilot_mask, num_tx, snr_db, freq_matrix, amp,
+                       doppler_hz, symbol_duration, time_rank):
+    """mmse_full in the Woodbury form that the JAX package computes
+    (ce5g_tpu/estimators/mmse.py:395-419), in the dtype of its inputs:
+    x = (e − √T·D·(V⊗√w)z)/σ² on the pilots, then Ĥ = R_t·x·w·F. The port
+    solves the same filter by the push-through identity; in float64 the two
+    forms agree to rounding. Per-frame contractions; shapes and arguments
+    as ``ce5g_torch.estimators.mmse.mmse_full_estimate``."""
+    from ce5g_torch.estimators.mmse import _legendre_basis, bessel_j0
+
+    real = rx_symbols.real.dtype
+    m = pilot_mask.to(real)
+    s = m.shape[1]
+    g = m[:, None] * rx_symbols.transpose(1, 2) / (tx_grid[:, None] + 1e-12)  # (B, R, S, K)
+    w = 0.5 * amp.to(real) ** 2
+    ds = torch.arange(s, dtype=real)
+    rt = bessel_j0(2.0 * np.pi * doppler_hz.to(real)[:, None, None]
+                   * (ds[:, None] - ds[None, :]) * symbol_duration)
+    q = (_legendre_basis(s, time_rank, "cpu").to(real) if time_rank is not None and time_rank < s
+         else torch.eye(s, dtype=real))
+    bm = q.T @ rt @ q
+    ridge = 1e-4 * bm.diagonal(dim1=-2, dim2=-1).sum(-1) / q.shape[1] + 1e-6
+    v = q @ torch.linalg.cholesky(bm + ridge[:, None, None] * torch.eye(q.shape[1], dtype=real))
+    e = torch.einsum("brsk,bpk->brsp", g, freq_matrix.conj())
+    d = torch.einsum("bsk,bpk,bqk->bspq", m.to(e.dtype), freq_matrix.conj(), freq_matrix)
+    lv = np.sqrt(num_tx) * v[:, :, None, :] * w.sqrt()[:, None, :, None]  # (B, S, P, m): L
+    lv = lv.to(e.dtype)
+    sigma2 = (num_tx * w.sum(-1) / 10.0 ** (snr_db.to(real) / 10.0)).clamp(min=1e-8)
+    gram = torch.einsum("bspm,bspq,bsqn->bpmqn", lv.conj(), d, lv).flatten(3).flatten(1, 2)
+    gram = gram + sigma2[:, None, None] * torch.eye(gram.shape[-1], dtype=real)
+    rhs = torch.einsum("bspm,brsp->bpmr", lv.conj(), e).flatten(1, 2)
+    z = torch.linalg.solve(gram, rhs).unflatten(1, lv.shape[-2:])  # (B, P, m, R)
+    corr = torch.einsum("bspq,bsqn,bqnr->brsp", d, lv, z)
+    x = (e - corr) / sigma2[:, None, None, None]
+    t2 = torch.einsum("bzs,brsp->bzrp", (v @ v.transpose(1, 2)).to(x.dtype), x) * w[:, None, None]
+    h = torch.einsum("bzrp,bpk->bzrk", t2, freq_matrix)
+    return h[:, :, :, None, :].expand(*h.shape[:3], num_tx, h.shape[-1])

@@ -1,14 +1,19 @@
-"""chip_smoke.py's Wiener serving anchors, recomputed from the JAX package.
+"""chip_smoke.py's serving anchors, recomputed from the JAX package.
 
 Phases 9 and 11 hold the port's mean NMSE to the JAX package's on its
 2000-frame SIMO test split. results_simo/identifiable_study.json took the
-classical rows on a TPU, whose float32 matmuls lose precision in the
-Woodbury solve of mmse_full and mmse_full_est at high SNR: its mmse_full
-reads −20.44 dB at 30 dB SNR, worse than at 20 dB. The port computes in
-full float32, so those two anchors are the JAX package's own estimators on
-the same split in float32 on the CPU. The split is regenerated from its
-deterministic keys (seed 42, split "test", as data_simo/test_manifest.json);
-mmse, which has no such solve, reproduces the record exactly.
+classical rows on a TPU. The JAX package finishes the Woodbury solve of
+mmse_full and mmse_full_est with a difference of nearly equal vectors over
+σ² (ce5g_tpu/estimators/mmse.py:405-419), so its float32 rounding lifts
+both at high SNR, and more on the TPU: the record's mmse_full reads
+−20.44 dB at 30 dB SNR, worse than at 20 dB. Those two anchors are the JAX
+package's own estimators on the same split in float32 on the CPU. The port
+solves without that difference (tests/test_torch_woodbury.py). The split is
+regenerated from its deterministic keys (seed 42, split "test", as
+data_simo/test_manifest.json); mmse, which has no such solve, reproduces
+the record exactly. The SIMO lstm left no test result (its run stopped at
+epoch 5): its anchor is the JAX package's checkpoint on the first
+LSTM_FRAMES frames of a split the port makes on the CPU (``-m slow``).
 """
 import functools
 import json
@@ -16,6 +21,7 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 SPLIT_FRAMES = 2000
 BATCH = 250
@@ -67,3 +73,26 @@ def test_wiener_anchors_are_the_jax_package_in_float32():
             got = 10 * np.log10(nmse[est][snr == s].mean())
             assert abs(got - by_snr[str(s)]) < 0.02, (est, s)
         assert 10 * np.log10(nmse[est][snr == 30.0].mean()) < by_snr["30.0"] - 5.0, est
+
+
+@pytest.mark.slow  # the JAX package's full-width LSTM on 64 frames on the CPU (≈90 s)
+def test_lstm_anchor_is_the_jax_package_in_float32(tmp_path):
+    import chip_smoke
+    from ce5g_tpu.config import load_config
+    from ce5g_tpu.eval.evaluate import ModelEvaluator
+    from ce5g_tpu.train import ChannelDataset as JDataset
+    from ce5g_torch.config import config_from_dict
+    from ce5g_torch.data import DatasetGenerator
+
+    n = chip_smoke.LSTM_FRAMES
+    DatasetGenerator(config_from_dict(chip_smoke.SIMO_CONFIG), str(tmp_path),
+                     device="cpu").generate_split("test", n, log=lambda *_: None)
+    ds = JDataset(str(tmp_path / "test_manifest.json"))
+    r = ModelEvaluator(load_config("configs/simo_identifiable.yaml"), "models_simo",
+                       results_dir=str(tmp_path / "results")).evaluate_model("lstm", ds,
+                                                                             num_samples=n)
+    db, sigma = chip_smoke.mean_db(r["per_sample_nmse"])
+    print(f"\nJAX lstm on the first {n} frames of a port-made SIMO split: {db:.4f} dB "
+          f"(σ of the mean {sigma:.4f} dB)")
+    assert r["num_samples"] == n
+    assert round(db, 2) == chip_smoke.SERVING_ANCHORS_DB["lstm"]

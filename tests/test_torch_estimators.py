@@ -3,9 +3,10 @@
 Frames are simulated by ce5g_tpu, carried across with
 ``ce5g_torch.convert.frame_from_numpy``, and estimated by both packages
 on the CPU. LS and diagonal MMSE agree elementwise within 1e-4 of the
-channel's rms; mmse_full within 1e-3, because the Woodbury path's exact
-cancellation (h − Φ·sol)/σ² amplifies differences in float32 summation
-order between XLA and PyTorch. NMSE agrees within 0.01 dB.
+channel's rms; mmse_full within 1e-3, because the JAX package ends its
+Woodbury solve with the difference (e − corr)/σ², which amplifies its
+float32 rounding (the port solves without it: tests/test_torch_woodbury.py).
+NMSE agrees within 0.01 dB.
 """
 import dataclasses
 import functools
@@ -46,8 +47,8 @@ def _db(h_true, h_est):
 @pytest.fixture(scope="module")
 def small_frames(small_cfg):
     """Three JAX frames of mixed profile, Doppler, SNR and density. SNR
-    stays ≤ 20 dB here: the Woodbury cancellation grows as 1/σ², and at
-    25 dB even the JAX package's own two mmse_full branches (profile
+    stays ≤ 20 dB here: the JAX package's Woodbury cancellation grows as
+    1/σ², and at 25 dB even its own two mmse_full branches (profile
     tables vs per-frame contractions) differ by 2.4e-3 of the channel rms
     on these frames, beyond the 1e-3 bound."""
     params = jax_params([0, 1, 2], [10.0, 100.0, 200.0], [5.0, 15.0, 20.0],
@@ -66,7 +67,7 @@ def small_frames(small_cfg):
         ("mmse", "linear", 1e-4),
         ("ls", "cubic", 1e-4),  # slot form
         ("mmse", "cubic", 1e-4),
-        ("mmse_full", "linear", 1e-3),  # Woodbury cancellation, see module doc
+        ("mmse_full", "linear", 1e-3),  # the JAX package's cancellation, see module doc
     ],
 )
 def test_estimate_batch_matches_jax(small_cfg, small_frames, estimator, method, tol):

@@ -28,9 +28,9 @@ def _with_capacity(jcfg):
 def cell_frames(cfg):
     """Four frames of the comparison cells (EVA, 50 Hz, 10% pilots) at the
     default numerology, one per SNR of 5, 10, 15 and 20 dB. As in
-    tests/test_torch_estimators.py, SNR stays ≤ 20 dB: mmse_full's Woodbury
-    cancellation grows as 1/σ², and at 25 dB float32 summation order alone
-    moves its NMSE by ≈0.01 dB between the packages."""
+    tests/test_torch_estimators.py, SNR stays ≤ 20 dB: the JAX package's
+    Woodbury cancellation in mmse_full grows as 1/σ², and at 25 dB its
+    float32 rounding alone moves its NMSE by ≈0.01 dB."""
     jcfg = _with_capacity(cfg)
     params = jax_params([1] * 4, [50.0] * 4, [5.0, 10.0, 15.0, 20.0], [0.10] * 4)
     jf, tf = simulate_both(jcfg, params, seed=31)

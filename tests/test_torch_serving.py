@@ -5,8 +5,8 @@ A small 1×2 SIMO split is generated by ce5g_tpu's ``generate_chunk_fn``
 and its Wiener feature by ce5g_tpu's ``mmse_full``; both packages then read
 the same npz file. Per-sample NMSE agrees within 1e-4 relative for the
 stored baselines, LS, diagonal MMSE and the models; within 0.01 dB for
-mmse_full, the tolerance of tests/test_torch_estimators.py (its Woodbury
-cancellation amplifies float32 summation order). The port's
+mmse_full, the tolerance of tests/test_torch_estimators.py (the JAX
+package's Woodbury cancellation amplifies its float32 rounding). The port's
 ``generate_chunk`` on the JAX package's own draws gives the JAX chunk.
 """
 import dataclasses
@@ -37,7 +37,7 @@ MMSE_FULL_DB = 0.01
 @pytest.fixture(scope="module")
 def jcfg():
     """1×2 SIMO at a narrow numerology; SNR ≤ 20 dB as in
-    tests/test_torch_estimators.py (mmse_full's cancellation)."""
+    tests/test_torch_estimators.py (the JAX package's mmse_full cancellation)."""
     from ce5g_tpu import (ExperimentConfig, MIMOConfig, ModelConfig, OFDMConfig, PilotConfig,
                           SimulationConfig)
 

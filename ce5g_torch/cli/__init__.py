@@ -1,6 +1,7 @@
 """The port's command line: one module per entry point of the JAX
-package's ``scripts/``, each run as ``python -m ce5g_torch.cli.<name>``
-with that script's flags, defaults and output files.
+package's ``scripts/`` and its ``bench.py``, each run as ``python -m
+ce5g_torch.cli.<name>`` with that script's flags, defaults and output
+files.
 
 Every module has ``main(argv=None) -> int`` and ``build_parser()``. Each
 takes ``--device`` (default ``cuda``; without a card it raises unless
@@ -24,6 +25,12 @@ module, so the tests can call it with arrays.
     identifiable_study   the 1×2 SIMO estimator study
     diagnose_plateau     the superposition floor of the 2×2 split
     visualize_channels   channel heatmaps, Doppler sweep, autocorrelation
+    bench                the headline: sustained frames/s and NMSE, one JSON line
+    benchmark_suite      stage rates, rooflines, the HPD solve, codec, train steps
+    bench_factory        the factory's device and end-to-end samples/s
+    profile_bench        the bench pipeline's stages
+    profile_fine         pilot, Jakes and MMSE sub-stages; larger batches
+    profile_solve        small HPD-solve and frequency-response variants
 """
 
 MODULES = (
@@ -42,4 +49,10 @@ MODULES = (
     "identifiable_study",
     "diagnose_plateau",
     "visualize_channels",
+    "bench",
+    "benchmark_suite",
+    "bench_factory",
+    "profile_bench",
+    "profile_fine",
+    "profile_solve",
 )

@@ -10,15 +10,18 @@ is ``--device``: ``cuda`` by default, which raises without a card
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
+import sys
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import ExperimentConfig, load_config
 from ..device import resolve_device
+from ..utils.profiling import timed_windows
 
 
 def add_config_arg(parser: argparse.ArgumentParser, default: Optional[str] = None):
@@ -112,3 +115,30 @@ def card_label(dev: torch.device) -> str:
     except (OSError, subprocess.SubprocessError):
         return f"{torch.cuda.get_device_name(dev)}, power limit not read"
     return out.splitlines()[0]
+
+
+def profile_row(name: str, batch: Callable[[], torch.Tensor], b: int, iters: int,
+                repeats: int = 3, width: int = 28) -> Dict[str, float]:
+    """One row of a profiler: ``batch()`` (fresh inputs each call, a 0-d
+    result) timed in ``repeats`` windows of ``iters`` calls after a first
+    window (``utils.profiling.timed_windows``), printed to stderr in the
+    JAX profile scripts' layout."""
+    first_s, windows = timed_windows(batch, iters, repeats)
+    dt = sum(s for s, _ in windows) / repeats / iters
+    print(f"{name:{width}s} {dt * 1e3:8.2f} ms/batch({b})  ({b / dt:9.0f} fr/s)  "
+          f"compile {first_s:6.1f}s", file=sys.stderr, flush=True)
+    return {"ms_per_batch": dt * 1e3, "frames_per_s": b / dt, "first_window_s": first_s}
+
+
+def profile_parser(doc: str, batch: int, iters: int) -> argparse.ArgumentParser:
+    """A profiler's parser: ``--config``, ``--device`` and its depth."""
+    parser = make_parser(doc)
+    parser.add_argument("--batch", type=int, default=batch, help="frames a batch")
+    parser.add_argument("--iters", type=int, default=iters, help="batches a timed window")
+    parser.add_argument("--repeats", type=int, default=3, help="timed windows")
+    return parser
+
+
+def print_rows(rows: Dict, dev: torch.device) -> None:
+    """A profiler's rows as one JSON line on stdout, with the card."""
+    print(json.dumps({"card": card_label(dev), "rows": rows}))

@@ -6,13 +6,16 @@ baselines, the information-floor finding), the training-curve figure,
 then the full JSON artifact dump (reference :162-339 aggregates phase
 JSONs the same way).
 
-The JAX script's headline also has a throughput line, read from the
-``BENCH_r*.json`` files at the root of the repository, and a roofline
-section, read from ``<results-dir>/benchmark_suite.json``. Both files
-hold TPU measurements, and the port has no benchmark of its own yet, so
-this headline leaves those two parts out rather than print a TPU number
-as the port's. Every other section reads the directories it is given:
-``--results-dir``, ``--model-dir`` and ``--study-dir``.
+The headline's throughput line reads ``<results-dir>/bench.json``, as
+``python -m ce5g_torch.cli.bench --out`` writes it, and its "Roofline
+(train steps)" section the ``train_step*`` cells that carry ``mfu`` in
+``<results-dir>/benchmark_suite.json``, as ``python -m
+ce5g_torch.cli.benchmark_suite --train --out`` writes it. Each is read
+only from a file that names its ``card``: the JAX script's inputs
+(``BENCH_r*.json`` at the root of the repository, its own
+``benchmark_suite.json``) hold TPU measurements and name none, so no TPU
+number enters this report. Every other section reads the directories it
+is given: ``--results-dir``, ``--model-dir`` and ``--study-dir``.
 
     python -m ce5g_torch.cli.final_report --results-dir DIR [--model-dir DIR] [--no-plots]
 """
@@ -41,12 +44,27 @@ def _get(d, *keys, default=None):
     return d
 
 
+def _port_result(path: Path):
+    """The JSON object at ``path`` if the port wrote it (it names its
+    ``card``), else None."""
+    if not path.exists():
+        return None
+    d = json.loads(path.read_text())
+    return d if isinstance(d, dict) and d.get("card") else None
+
+
 def build_headline(results_dir: Path, model_dir: Path,
                    study_dir: Path = Path("results_simo")) -> str:
     """The headline's markdown from the files in ``results_dir`` and
-    ``study_dir`` (the JAX script's text, without its throughput line and
-    roofline section)."""
+    ``study_dir``: the JAX script's text, its throughput line and roofline
+    section taken from the port's own results only."""
     lines = []
+    bench = _port_result(results_dir / "bench.json")
+    if bench:
+        lines += [
+            f"- **Throughput**: {_f(bench.get('value'), '.0f')} {bench.get('unit')} "
+            f"on one card ({bench['card']}; bench.json).",
+        ]
     diag = results_dir / "plateau_diagnosis.json"
     if diag.exists():
         d = json.loads(diag.read_text())
@@ -149,6 +167,17 @@ def build_headline(results_dir: Path, model_dir: Path,
                 f"| {k} | {_f(v)} | {ref.get(k, '—')} |"
                 for k, v in avg.items()
             ]
+
+    suite = _port_result(results_dir / "benchmark_suite.json")
+    if suite:
+        tr = {k: v for k, v in suite.items() if k.startswith("train_step") and "mfu" in v}
+        if tr:
+            lines += ["", f"### Roofline (train steps; {suite['card']})", ""]
+            for k, v in tr.items():
+                lines.append(
+                    f"- `{k}`: {_f(v.get('ms_per_step'), '.1f')} ms/step, "
+                    f"MFU {_f(v.get('mfu'), '.1%')} (counted matmul/conv FLOPs)"
+                )
     return "\n".join(lines)
 
 

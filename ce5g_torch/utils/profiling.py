@@ -11,13 +11,21 @@ samples/s, run_phase3_robust.py:232-234):
     apart (build and warm-up) and synchronises the card after each call,
     as the JAX package's waits with ``block_until_ready``;
   * :func:`annotate` — a named ``record_function`` scope, shown on the
-    trace's timeline.
+    trace's timeline;
+  * :func:`timed_windows` — the measuring tools' clock (``cli.bench`` and
+    the rest): windows of batches whose results are summed on the card and
+    read once at each window's end;
+  * :data:`CARD_PEAKS` — each card's published peaks, by
+    ``torch.cuda.get_device_name``, for rooflines and bounds
+    (:func:`card_peaks`, :func:`work_bound`, :func:`roofline`). A card
+    missing from the table gets no roofline: another card's peaks are
+    never borrowed.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -104,3 +112,81 @@ class Stopwatch:
                 f" {r['best_s'] * 1e3:>7.1f}ms"
             )
         return "\n".join(lines)
+
+
+#: published peaks of each card, keyed by ``torch.cuda.get_device_name``:
+#: float32 outside the tensor cores (the port keeps TF32 off,
+#: ``device.resolve_device``), dense bf16 on the tensor cores (no
+#: sparsity), and the memory rate. The rates assume the card's full power
+#: limit; a card set below it runs slower under load.
+CARD_PEAKS: Dict[str, Dict] = {
+    "NVIDIA H100 80GB HBM3": {"fp32_flops": 67e12, "bf16_flops": 989e12, "hbm_Bps": 3.35e12,
+                              "source": "NVIDIA H100 data sheet, SXM5"},
+    "NVIDIA H100 PCIe": {"fp32_flops": 51e12, "bf16_flops": 756e12, "hbm_Bps": 2.0e12,
+                         "source": "NVIDIA H100 data sheet, PCIe"},
+    "NVIDIA H100 NVL": {"fp32_flops": 60e12, "bf16_flops": 835e12, "hbm_Bps": 3.9e12,
+                        "source": "NVIDIA H100 data sheet, NVL"},
+    "NVIDIA H200": {"fp32_flops": 67e12, "bf16_flops": 989e12, "hbm_Bps": 4.8e12,
+                    "source": "NVIDIA H200 data sheet, SXM"},
+}
+
+
+def card_peaks(device="cuda") -> Optional[Dict]:
+    """The peaks of the card behind ``device`` from :data:`CARD_PEAKS`,
+    with its ``name``; None for the CPU and for a card not in the table."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(dev)
+    peaks = CARD_PEAKS.get(name)
+    return None if peaks is None else {"name": name, **peaks}
+
+
+def no_roofline_note(device) -> str:
+    """Why a result on ``device`` carries no roofline fields."""
+    dev = torch.device(device)
+    what = "the CPU" if dev.type != "cuda" else f"{torch.cuda.get_device_name(dev)!r}"
+    return (f"no roofline: {what} is not in ce5g_torch.utils.profiling.CARD_PEAKS, and no "
+            "other card's peaks are used")
+
+
+def work_bound(nbytes: float, flops: float, peaks: Dict,
+               dtype: str = "fp32") -> Tuple[float, str]:
+    """(ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``flops`` of ``dtype`` ('fp32' or 'bf16'), the
+    larger of bytes over the memory rate and operations over the peak."""
+    t_bytes = nbytes / peaks["hbm_Bps"] * 1e3
+    t_ops = flops / peaks[f"{dtype}_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roofline(seconds: float, flops: float, nbytes: Optional[float], peaks: Dict,
+             dtype: str = "fp32") -> Dict:
+    """The share of the card's peaks that ``flops`` operations of ``dtype``
+    (and ``nbytes`` moved, where known) reach in ``seconds``: ``mfu``, and
+    ``hbm_util`` and ``bound`` only where the bytes are known."""
+    out = {"mfu": flops / seconds / peaks[f"{dtype}_flops"]}
+    if nbytes:
+        out["hbm_util"] = nbytes / seconds / peaks["hbm_Bps"]
+        out["bound"] = "bytes" if out["hbm_util"] >= out["mfu"] else "operations"
+    return out
+
+
+def timed_windows(batch: Callable[[], torch.Tensor], iters: int,
+                  repeats: int) -> Tuple[float, List[Tuple[float, float]]]:
+    """Time ``batch()``, which returns a 0-d tensor, in windows of
+    ``iters`` calls: the results are summed where they lie and read once
+    at the window's end, so the host waits for the card once a window and
+    never inside it. The first window (kernel builds, allocator and cuDNN
+    warm-up) is kept apart. Returns (its seconds, [(seconds, sum) of each
+    of the ``repeats`` windows that follow])."""
+    def window():
+        t0 = time.perf_counter()
+        total = batch()
+        for _ in range(iters - 1):
+            total = total + batch()
+        value = float(total)  # the one read of the window
+        return time.perf_counter() - t0, value
+
+    first_s = window()[0]
+    return first_s, [window() for _ in range(repeats)]

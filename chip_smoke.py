@@ -138,7 +138,19 @@ Phases, one line each; any failure exits non-zero:
      the launch counts and each kernel it launched held against its plain
      version; on the card and on the CPU at 4 frames a sweep point from the
      same draws, every NMSE within 0.01 dB; and its mmse_full at 25 and
-     30 dB against the float64 plain path.
+     30 dB against the float64 plain path;
+ 18. the measuring tools of ce5g_torch.cli, each in this process through
+     ``main(argv)`` at its defaults unless said: (a) bench (the bench
+     config, fresh draws every batch, the median of 3 windows of 64 batches
+     for mmse_full, ls and ls:cubic), its mmse_full within 0.15 dB of
+     -1.25 dB and every field present, its frames/s printed beside phase
+     8's synchronised rates, with the launch counts around it (the 'bench'
+     path); (b) benchmark_suite --train (cnn at batch 64), no error cell, no
+     MFU or HBM share above 1.05, the native codec, and hpd_solve against
+     its plain version on the suite's HPD problem; (c) bench_factory into a
+     temporary directory (an NCCL group of one rank started and destroyed
+     by the command); (d) profile_bench, profile_fine (one batch a window)
+     and profile_solve, every row printed.
 Each phase prints its wall time. Then the wall time, one JSON line of
 per-kernel numbers, and last the device line.
 
@@ -161,8 +173,6 @@ sys.path.insert(0, REPO)
 BATCH = 256
 NMSE_ANCHOR_DB = -1.25  # 4-TX superposition floor (T−1)/T of mmse_full
 NMSE_SLACK_DB = 0.15
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 PARITY_FRAMES = 256
 # Times of the kernel bodies that the present interpolation kernels replaced,
 # on an NVIDIA H100 80GB HBM3 at 700 W, at the inputs of slower_than_replaced()
@@ -461,11 +471,14 @@ def graph_ms(fn, rounds=5, iters=20):
 
 
 def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by): the larger of bytes over the card's memory
+    rate and operations over its float32 peak, from the card's published
+    peaks (ce5g_torch.utils.profiling.CARD_PEAKS)."""
+    from ce5g_torch.utils.profiling import card_peaks, work_bound
+
+    peaks = card_peaks("cuda")
+    fail_unless(peaks is not None, "the card's peaks are in ce5g_torch.utils.profiling.CARD_PEAKS")
+    return work_bound(nbytes, flops, peaks)
 
 
 def hpd_problem(gen, dev, b, n, r, cond=100.0):
@@ -2686,6 +2699,127 @@ def notebook_phase(dev, card):
     return launches
 
 
+MEASURING_SLACK = 1.05  # largest share of a peak that phase 18 accepts
+
+
+def _rows(out):
+    """The rows of a profiler's JSON line (the last line of its output)."""
+    return json.loads(out.strip().splitlines()[-1])["rows"]
+
+
+def measuring_phase(dev, card, rates):
+    """Phase 18: the measuring tools of ce5g_torch.cli, in this process,
+    into a temporary directory removed however the phase ends: (a) bench
+    with the launch counters read around it, (b) benchmark_suite --train,
+    (c) bench_factory, (d) the three profilers. Returns the bench path's
+    launches."""
+    import torch
+    from ce5g_torch.cli import bench as bench_mod
+    from ce5g_torch.cli import benchmark_suite as suite_mod
+    from ce5g_torch.cli import profile_bench, profile_fine, profile_solve
+    from ce5g_torch.ops import hpd_solve as hpd_mod
+
+    t_phase = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_measuring_") as workdir:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = cli_run(walls, "bench", "--out", os.path.join(workdir, "bench.json"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        line = json.loads(out.strip().splitlines()[-1])
+        fail_unless(line == _json(os.path.join(workdir, "bench.json")),
+                    "bench --out holds the printed line")
+        missing = {"metric", "value", "unit", "spread", "nmse_db", "compile_s", "init_s", "card",
+                   "estimators"} - set(line)
+        fail_unless(not missing, f"bench prints every field: missing {sorted(missing)}")
+        fail_unless(line["metric"] == bench_mod.METRIC and line["card"] == card,
+                    f"bench's metric and card: {line['metric']}, {line['card']}")
+        fail_unless(bench_mod.within_gate(line["nmse_db"]),
+                    f"bench mmse_full NMSE {line['nmse_db']:.4f} dB within {bench_mod.SLACK_DB} "
+                    f"dB of {bench_mod.ANCHOR_DB}")
+        parts = []
+        for name, r in line["estimators"].items():
+            fail_unless(r["frames_per_s"] > 0 and math.isfinite(r["nmse_db"]),
+                        f"bench {name} rate and NMSE")
+            parts.append(f"{name} {r['frames_per_s']:.1f} frames/s ({r['frames_per_s_min']:.1f}-"
+                         f"{r['frames_per_s_max']:.1f}; phase 8, synchronised every batch: "
+                         f"{rates[name]:.1f}), NMSE {r['nmse_db']:.4f} dB")
+        fail_unless(set(line["estimators"]) == set(rates),
+                    f"bench measures {sorted(rates)}: {sorted(line['estimators'])}")
+        print(f"  (a) bench (median of {line['repeats']} windows of {line['iters']} batches of "
+              f"{line['batch']}; init {line['init_s']:.2f} s, first window {line['compile_s']:.2f} "
+              f"s): " + "; ".join(parts))
+        print("  kernels launched by bench: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        fail_unless(all(n > 0 for n in launches.values()),
+                    f"every kernel launched by bench: {launches}")
+
+        suite_path = os.path.join(workdir, "benchmark_suite.json")
+        cli_run(walls, "benchmark_suite", "--train", "--train-models", "cnn",
+                "--train-batches", "64", "--out", suite_path)
+        suite = _json(suite_path)
+        cells = {k: v for k, v in suite.items() if isinstance(v, dict) and k != "peaks"}
+        errors = {k: v["error"] for k, v in cells.items() if "error" in v}
+        fail_unless(not errors, f"benchmark_suite has no error cell: {errors}")
+        fail_unless("peaks" in suite, f"benchmark_suite has the card's peaks: {suite.get('roofline_note')}")
+        over = {k: (v.get("mfu"), v.get("hbm_util")) for k, v in cells.items()
+                if max(v.get("mfu", 0.0), v.get("hbm_util", 0.0)) > MEASURING_SLACK}
+        fail_unless(not over, f"no MFU or HBM share above {MEASURING_SLACK}: {over}")
+        fail_unless(suite["codec"]["native"], "benchmark_suite's codec is the native one")
+        fail_unless(cells.get("hpd_solve/kernel", {}).get("rel_err_vs_plain", 1.0) < 1e-4,
+                    f"benchmark_suite's hpd_solve/kernel against its plain version: "
+                    f"{cells.get('hpd_solve/kernel')}")
+        gram, rhs = suite_mod.hpd_problem(BATCH, suite_mod.HPD_N, 4, dev)
+        hpd_rel = rel(hpd_mod.hpd_solve(gram, rhs), hpd_mod.hpd_solve_plain(gram, rhs))
+        fail_unless(hpd_rel < 1e-4, f"hpd_solve on the suite's problem, relative error "
+                                    f"{hpd_rel:.2e} < 1e-4")
+        print("  (b) benchmark_suite: " + "; ".join(
+            f"{k} {v['ms_per_batch']:.3f} ms/batch {v['frames_per_s']:.0f} frames/s"
+            + (f" MFU {v['mfu']:.2e}" if "mfu" in v else "")
+            + (f" HBM {v['hbm_util']:.2e}" if "hbm_util" in v else "")
+            for k, v in cells.items() if "frames_per_s" in v))
+        print("      " + "; ".join(f"{k} {v['ms_per_batch']:.3f} ms" for k, v in cells.items()
+                                   if k.startswith("hpd_solve/"))
+              + f"; kernel vs plain on the suite's problem {tuple(gram.shape)} relative error "
+              f"{hpd_rel:.2e}; codec native write {suite['codec']['write_MBps']:.1f} MB/s, read "
+              f"{suite['codec']['read_MBps']:.1f} MB/s, npz {suite['codec']['npz_write_MBps']:.1f} MB/s")
+        print("      " + "; ".join(
+            f"{k} {v['ms_per_step']:.2f} ms/step, MFU {v['mfu']:.4f}"
+            + (f", host-staged {v['staged_ms_per_step']:.2f} ms ({v['staging_overhead']:+.1%})"
+               if "staged_ms_per_step" in v else "")
+            for k, v in cells.items() if k.startswith("train_step")))
+
+        cli_run(walls, "bench_factory", "--results-dir", workdir)
+        fac = _json(os.path.join(workdir, "factory_throughput.json"))
+        fail_unless(fac["card"] == card and fac["world_size"] == 1
+                    and fac["device_samples_per_s"] > 0 and fac["end_to_end_samples_per_s"] > 0,
+                    f"bench_factory's result: {fac}")
+        print(f"  (c) bench_factory: device {fac['device_samples_per_s']:.1f} samples/s, end to end "
+              f"{fac['end_to_end_samples_per_s']:.1f} samples/s, chunk {fac['chunk_mb']:.1f} MB, "
+              f"fetch-bound fraction {fac['fetch_bound_fraction']:.3f}")
+
+    gen = torch.Generator(device=dev)
+    cfg = bench_mod.bench_config(bench_setup(dev, 1)[0])
+    expected = {
+        "profile_bench": set(profile_bench.stages(cfg, 1, gen, dev)),
+        "profile_fine": set(profile_fine.fine_rows(cfg, 1, gen, dev))
+        | {f"full @{b}" for b in profile_fine.SWEEP},
+        "profile_solve": set(profile_solve.solver_rows(gen, 1, dev))
+        | set(profile_solve.freqresp_rows(cfg, gen, 1, dev)),
+    }
+    # profile_fine's per-frame bisection rows take ≈0.4-0.9 s a batch on an
+    # H100 80GB HBM3 at 700 W: one batch a window keeps the phase near 30 s
+    depth = {"profile_fine": ("--iters", "1")}
+    for name, want in expected.items():
+        rows = _rows(cli_run(walls, name, *depth.get(name, ())))
+        fail_unless(set(rows) == want and all(r["ms_per_batch"] > 0 for r in rows.values()),
+                    f"{name} printed every row: {sorted(rows)}")
+        print(f"  (d) {name}: " + "; ".join(f"{k} {v['ms_per_batch']:.3f} ms" for k, v in rows.items()))
+    print(f"  commands: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    print(f"phase 18 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -2821,6 +2955,7 @@ def main():
         time_domain_launches = time_domain_phase(dev, card, tune_sets)
         cli_launches = cli_phase(dev, card, workdir, ds, serving_results, blind_results)
     notebook_launches = notebook_phase(dev, card)
+    bench_launches = measuring_phase(dev, card, rates)
     for kern in kernels:
         kern["launches_by_path"] = {"main": launches[kern["name"]],
                                     "parity": parity_launches[kern["name"]],
@@ -2831,7 +2966,8 @@ def main():
                                     "evaluation": evaluation_launches[kern["name"]],
                                     "time_domain": time_domain_launches[kern["name"]],
                                     "cli": cli_launches[kern["name"]],
-                                    "notebook": notebook_launches[kern["name"]]}
+                                    "notebook": notebook_launches[kern["name"]],
+                                    "bench": bench_launches[kern["name"]]}
     print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

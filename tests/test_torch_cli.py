@@ -96,10 +96,13 @@ def ws(tmp_path_factory):
 
 
 def _jax_flags(name):
-    """The flags of scripts/<name>.py and of scripts/_common.py's --config,
-    read from their source."""
-    src = (REPO / "scripts" / f"{name}.py").read_text()
-    return set(re.findall(r"add_argument\(\s*\"(--[\w-]+)\"", src)) | {"--config"}
+    """The flags of scripts/<name>.py (bench.py at the root for 'bench',
+    which reads its one flag from sys.argv) and of scripts/_common.py's
+    --config, read from their source."""
+    path = REPO / "scripts" / f"{name}.py"
+    src = (path if path.exists() else REPO / f"{name}.py").read_text()
+    return (set(re.findall(r"add_argument\(\s*\"(--[\w-]+)\"", src))
+            | set(re.findall(r"\"(--[\w-]+)\" in sys\.argv", src)) | {"--config"})
 
 
 @pytest.mark.parametrize("name", MODULES)
@@ -143,6 +146,12 @@ REQUIRED = {
     "identifiable_study": ["--results-dir", "{d}"],
     "diagnose_plateau": ["--results-dir", "{d}"],
     "visualize_channels": ["--results-dir", "{d}"],
+    "bench": [],
+    "benchmark_suite": [],
+    "bench_factory": ["--results-dir", "{d}"],
+    "profile_bench": [],
+    "profile_fine": [],
+    "profile_solve": [],
 }
 
 
@@ -249,6 +258,11 @@ def test_train_model_two_ranks(ws, tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["models_one", "models_two", "res_one", "res_two",
                                             "shard.yaml"]
 
+#: the measuring tools, run small by tests/test_torch_bench.py
+MEASURING = ("bench", "benchmark_suite", "bench_factory", "profile_bench", "profile_fine",
+             "profile_solve")
+
+
 def _assert_keys(got, ref, depth, path=""):
     """Every key of ``ref`` is in ``got``, for ``depth`` levels of dicts."""
     missing = set(ref) - set(got)
@@ -307,7 +321,8 @@ def _runs(root):
 
 @pytest.mark.parametrize("name", [m for m in MODULES if m not in
                                   ("generate_dataset", "compute_wiener", "train_model",
-                                   "tune_hyperparameters", "apply_tuning", "final_report")])
+                                   "tune_hyperparameters", "apply_tuning", "final_report")
+                                  and m not in MEASURING])
 def test_cli_runs(ws, name, tmp_path):
     """One run of the command, from an empty working directory that it
     leaves empty, and the keys of each JSON file it writes."""
@@ -550,9 +565,13 @@ def test_plateau_oracle_and_groupings_match_jax(ws):
     assert set(dp.group(got["full"], ctype)) <= {"EPA", "EVA", "ETU"}
 
 
-def test_headline_matches_jax(monkeypatch):
+def test_headline_matches_jax(monkeypatch, tmp_path):
     """final_report's headline on the committed results/ is the JAX
-    script's text without its throughput line and roofline section."""
+    script's text without its throughput line and roofline section: their
+    inputs there (BENCH_r*.json, results/benchmark_suite.json) are TPU
+    files that name no card. With a port-made bench.json and
+    benchmark_suite.json the two parts come back, with the card's name;
+    a BENCH_r*.json in the working directory is never read."""
     from ce5g_torch.cli import final_report
 
     monkeypatch.chdir(REPO)
@@ -566,3 +585,27 @@ def test_headline_matches_jax(monkeypatch):
     got = final_report.build_headline(REPO / "results", REPO / "models", REPO / "results_simo")
     assert got == "\n".join(lines)
     assert "Throughput" in ref and "Roofline" in ref  # the two parts the port leaves out
+
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    res = tmp_path / "res"
+    res.mkdir()
+    (res / "bench.json").write_text(json.dumps(
+        {"metric": "m", "value": 1234.5, "unit": "frames/s", "card": card}))
+    (res / "benchmark_suite.json").write_text(json.dumps(
+        {"card": card, "simulate": {"ms_per_batch": 1.0},
+         "train_step_cnn/b64/bf16": {"ms_per_step": 21.25, "mfu": 0.031},
+         "train_step_cnn/b64/f32": {"error": "out of memory"}}))
+    work = tmp_path / "cwd"
+    work.mkdir()
+    (work / "BENCH_r09.json").write_text(json.dumps({"value": 999999.0, "unit": "frames/s"}))
+    monkeypatch.chdir(work)
+    got = final_report.build_headline(res, REPO / "models", res)
+    assert got.split("\n")[0] == f"- **Throughput**: 1234 frames/s on one card ({card}; bench.json)."
+    assert f"### Roofline (train steps; {card})" in got
+    assert "- `train_step_cnn/b64/bf16`: 21.2 ms/step, MFU 3.1%" in got
+    assert "b64/f32" not in got and "999999" not in got and "BENCH_r" not in got
+    for name in ("bench.json", "benchmark_suite.json"):  # a file without a card is not read
+        d = json.loads((res / name).read_text())
+        del d["card"]
+        (res / name).write_text(json.dumps(d))
+    assert final_report.build_headline(res, REPO / "models", res) == ""

@@ -145,7 +145,7 @@ def test_package_imports_without_jax():
         "ce5g_torch.physics.ofdm\n"
         "from ce5g_torch.cli import MODULES\n"
         "import importlib; [importlib.import_module('ce5g_torch.cli.' + m) for m in MODULES]\n"
-        "assert len(MODULES) == 15\n"
+        "assert len(MODULES) == 21\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}

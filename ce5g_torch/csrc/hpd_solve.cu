@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel ce5g_tpu/ops/hpd_solve_pallas.py::_kernel, which
 // solves the mmse_full Woodbury system (n = paths × time rank = 45 at the
-// default config, R = rx antennas ≤ 8 right-hand sides) with the batch on
-// the TPU's 128 lanes.
+// default config, R = rx antennas right-hand sides) with the batch on the
+// TPU's 128 lanes.
 //
 // What bounds it on the H100. At the bench shape (B = 256, n = 45, R = 4)
 // the bytes (A read, B read, X written: 4.9 MB, 1.5 µs at 3.35 TB/s) and
@@ -47,42 +47,137 @@
 //
 // A pivot ≤ 0 or NaN makes that system's whole solution NaN, as the
 // reference's Cholesky failure does; the other systems are not touched.
-// No padding: the grid is B blocks. n ≤ 128 and R ≤ 8 keep the published
-// matrix within 140 KB of dynamic shared memory and cover every mmse_full
-// configuration including full rank (n = 126). They do not cover the blind
-// prior fit (ce5g_tpu/estimators/blind.py): its ≈ 75 × 75 ridge system has
-// R + 2·75 ≈ 154 right-hand sides and is a plain XLA solve outside any
-// kernel in the JAX package; the slice that ports it decides between the
-// plain solve there and a wider R here.
+// No padding: the grid is B blocks.
+//
+// Any number of right-hand sides. The first kMaxR = 8 ride the elimination
+// as rows of the trapezoid; each further column is solved by one warp on
+// its own against the factor that the elimination left in shared memory:
+// a forward substitution L·y' = b by columns of L (x_j goes round by
+// __shfl_sync, column j of W read conflict-free, the row stride being odd),
+// then the same backward substitution. That loop is a second instance, for
+// R > 8 only: carried in the instances for R ≤ 8 it made them 6–8% slower
+// at the bench shape (PERF.md §6). The factor is computed once per
+// system whatever R is, and shared memory holds the factor and at most
+// kMaxR rows of y', (n + 8)·(n | 1)·8 B ≤ 140 KB at n = 128. n ≤ 128
+// covers every mmse_full configuration of 14 symbols, full rank included
+// (n = 126).
+//
+// Larger systems (n > 128: mmse_full over one LTE radio frame of 140
+// symbols takes time rank 15 at 200 Hz, n = 135) take a second kernel,
+// hpd_solve_blocked_kernel, which keeps the factor in a device workspace,
+// one block a system as above:
+//  * a blocked right-looking LDLᴴ: a panel of 32 columns is eliminated a
+//    column at a time (one barrier a column, every row of the panel's
+//    columns updated), then the trailing lower triangle takes the panel's
+//    rank-32 update in 32 × 32 tiles staged in shared memory, so that an
+//    element is read and written once a panel, not once a column;
+//  * a pass turns W = L·D into the unit L (lower) and its conjugate
+//    transpose (upper), so that both substitutions read rows, not columns;
+//    the diagonal keeps (d, 1/d);
+//  * a warp per right-hand side then runs the forward and the backward
+//    substitution through a (R, n) workspace, one warp barrier a step.
+// The pivots' rule and the NaN contract are the same. It is bound by the
+// chain of n panel steps and the substitutions' 2n warp steps, each a
+// round trip to L1 or L2; PERF.md has its times.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxN = 128;
-constexpr int kMaxR = 8;
+constexpr int kMaxR = 8;  // right-hand sides that ride the elimination
 constexpr int kMaxSmem = (kMaxN + kMaxR) * (kMaxN | 1) * (int)sizeof(float2);
 constexpr int kMaxDevices = 64;
 constexpr int TG = 16;  // the threads of a block form a TG × TG grid
+constexpr int NW = TG * TG / 32;  // warps: one right-hand side each at a time
+constexpr int kPanel = 32;  // n > kMaxN: columns of a panel, the side of an update tile
+static_assert(NW == kMaxR, "a warp takes one of the right-hand sides that ride the elimination");
 
-template <int NB>
+// Forward substitution L·y' = b of one column held by a warp (entry i in
+// lane i mod 32, slot i / 32), with L[i][j] = W[i][j] / d_j for i > j.
+template <int NE>
+__device__ __forceinline__ void forward_substitute(float2 (&u)[NE], const float2* w,
+                                                   const float* dinv, int ld, int n, int lane) {
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    const int top = min(31, n - 1 - 32 * e);
+    if (top < 0) continue;
+    for (int jj = 0; jj <= top; ++jj) {
+      const int j = 32 * e + jj;
+      const float dj = dinv[j];
+      const float2 t = make_float2(__shfl_sync(0xffffffffu, u[e].x, jj) * dj,
+                                   __shfl_sync(0xffffffffu, u[e].y, jj) * dj);
+#pragma unroll
+      for (int e2 = e; e2 < NE; ++e2) {
+        const int i = lane + 32 * e2;
+        if (i > j && i < n) {  // y_i −= W[i][j] / d_j · y_j, rounded as the elimination rounds
+          const float2 l = w[i * ld + j];
+          u[e2].x -= fmaf(-l.y, t.y, l.x * t.x);
+          u[e2].y -= fmaf(l.y, t.x, l.x * t.y);
+        }
+      }
+    }
+  }
+}
+
+// Backward substitution Lᴴ·x = D⁻¹·y', by columns of Lᴴ = rows of L, of one
+// column held by a warp as above: on entry u_i = y'_i / d_i; at step j it is
+// x_j for the lane that owns row j.
+template <int NE>
+__device__ __forceinline__ void back_substitute(float2 (&u)[NE], const float (&di)[NE],
+                                                const float2* w, int ld, int n, int lane) {
+  const float2 zero = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int e = NE - 1; e >= 0; --e) {
+    const int top = min(31, n - 1 - 32 * e);
+    if (top < 0) continue;
+    float2 l[NE], ln[NE];  // row j of L and, read a step ahead, row j − 1
+#pragma unroll
+    for (int e2 = 0; e2 <= e; ++e2) {
+      const int i = lane + 32 * e2;
+      l[e2] = i < 32 * e + top ? w[(32 * e + top) * ld + i] : zero;
+    }
+    for (int jj = top; jj >= 0; --jj) {
+      const int j = 32 * e + jj;
+#pragma unroll
+      for (int e2 = 0; e2 <= e; ++e2) {
+        const int i = lane + 32 * e2;
+        ln[e2] = (jj > 0 && i < j - 1) ? w[(j - 1) * ld + i] : zero;
+      }
+      float2 xj;
+      xj.x = __shfl_sync(0xffffffffu, u[e].x, jj);
+      xj.y = __shfl_sync(0xffffffffu, u[e].y, jj);
+#pragma unroll
+      for (int e2 = 0; e2 <= e; ++e2) {
+        const float2 ls = make_float2(l[e2].x * di[e2], l[e2].y * di[e2]);
+        // u_i −= conj(W[j][i]) / d_i · x_j; zero for i ≥ j
+        u[e2].x -= ls.x * xj.x + ls.y * xj.y;
+        u[e2].y -= ls.x * xj.y - ls.y * xj.x;
+        l[e2] = ln[e2];
+      }
+    }
+  }
+}
+
+// WIDE: R > kMaxR, the further right-hand sides solved by warps after the
+// elimination (a separate instance, so that the R ≤ kMaxR ones carry none of it)
+template <int NB, bool WIDE>
 __global__ void __launch_bounds__(TG * TG)
 hpd_solve_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
                  float2* __restrict__ X, int n, int r) {
-  constexpr int NA = NB + 1;                  // row blocks: n + R ≤ TG·NB + 8 ≤ TG·NA
-  constexpr int NW = TG * TG / 32;            // warps
-  constexpr int NC = (kMaxR + NW - 1) / NW;   // right-hand sides a warp may hold
+  constexpr int NA = NB + 1;                  // row blocks: n + 8 ≤ TG·NB + 8 ≤ TG·NA
   constexpr int NE = (TG * NB + 31) / 32;     // entries of a column a lane holds
-  // Published matrix, (n + r) rows of ld: row i < n holds L·D up to the
-  // diagonal, row n + c the conjugate of column c of y'. Written a column
-  // at a time as it becomes final.
+  // Published matrix, (n + r0) rows of ld: row i < n holds L·D up to the
+  // diagonal, row n + c the conjugate of column c of y' for the first r0
+  // right-hand sides. Written a column at a time as it becomes final.
   extern __shared__ float2 w[];
   __shared__ float dinv[kMaxN];
   __shared__ int bad;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ri = tid / TG, cv = tid % TG;
-  const int ld = n | 1, rows = n + r;
+  const int r0 = WIDE ? kMaxR : r;  // right-hand sides that ride the elimination
+  const int ld = n | 1, rows = n + r0;
   const size_t sys = blockIdx.x;
   const float2* a_g = A + sys * n * n;
   const float2* b_g = B + sys * n * r;
@@ -176,80 +271,197 @@ hpd_solve_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
     }
   }
 
-  // Backward substitution Lᴴ·x = D⁻¹·y', by columns of Lᴴ = rows of L. A
-  // lane holds u_i = (y'_i − Σ_{j>i} conj(W[j][i])·x_j) / d_i for its rows;
-  // at step j it is x_j for the lane that owns row j.
-  const int nq = warp < r ? (r - warp + NW - 1) / NW : 0;  // columns of this warp
-  float2 u[NC][NE];
+  // Warp c finishes right-hand side c < r0 from its row of y' (the
+  // backward substitution needs no block barrier); with WIDE it then takes
+  // the columns c + NW, c + 2·NW, … from device memory.
   float di[NE];
 #pragma unroll
   for (int e = 0; e < NE; ++e) {
     const int i = lane + 32 * e;
     di[e] = i < n ? dinv[i] : 0.0f;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int c = warp + q * NW;
-      const float2 y = (i < n && c < r) ? w[(n + c) * ld + i] : zero;
-      u[q][e] = make_float2(y.x * di[e], -y.y * di[e]);
-    }
   }
-  if (nq > 0) {
-#pragma unroll
-    for (int e = NE - 1; e >= 0; --e) {
-      const int top = min(31, n - 1 - 32 * e);
-      if (top < 0) continue;
-      float2 l[NE], ln[NE];  // row j of L and, read a step ahead, row j − 1
-#pragma unroll
-      for (int e2 = 0; e2 <= e; ++e2) {
-        const int i = lane + 32 * e2;
-        l[e2] = i < 32 * e + top ? w[(32 * e + top) * ld + i] : zero;
-      }
-      for (int jj = top; jj >= 0; --jj) {
-        const int j = 32 * e + jj;
-#pragma unroll
-        for (int e2 = 0; e2 <= e; ++e2) {
-          const int i = lane + 32 * e2;
-          ln[e2] = (jj > 0 && i < j - 1) ? w[(j - 1) * ld + i] : zero;
-        }
-        float2 xj[NC];
-#pragma unroll
-        for (int q = 0; q < NC; ++q) {
-          if (q < nq) {
-            xj[q].x = __shfl_sync(0xffffffffu, u[q][e].x, jj);
-            xj[q].y = __shfl_sync(0xffffffffu, u[q][e].y, jj);
-          }
-        }
-#pragma unroll
-        for (int e2 = 0; e2 <= e; ++e2) {
-          const float2 ls = make_float2(l[e2].x * di[e2], l[e2].y * di[e2]);
-#pragma unroll
-          for (int q = 0; q < NC; ++q) {
-            if (q < nq) {  // u_i −= conj(W[j][i]) / d_i · x_j; zero for i ≥ j
-              u[q][e2].x -= ls.x * xj[q].x + ls.y * xj[q].y;
-              u[q][e2].y -= ls.x * xj[q].y - ls.y * xj[q].x;
-            }
-          }
-          l[e2] = ln[e2];
-        }
-      }
-    }
-  }
-
   float2* x_g = X + sys * n * r;
   const bool isbad = bad != 0;
   const float nan = __int_as_float(0x7fc00000);
+  auto write = [&](const float2 (&u)[NE], int c) {
 #pragma unroll
-  for (int e = 0; e < NE; ++e) {
-    const int i = lane + 32 * e;
+    for (int e = 0; e < NE; ++e) {
+      const int i = lane + 32 * e;
+      if (i < n) x_g[i * r + c] = isbad ? make_float2(nan, nan) : u[e];
+    }
+  };
+  if (warp < r0) {
+    float2 u[NE];
 #pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int c = warp + q * NW;
-      if (i < n && c < r) x_g[i * r + c] = isbad ? make_float2(nan, nan) : u[q][e];
+    for (int e = 0; e < NE; ++e) {
+      const int i = lane + 32 * e;
+      const float2 y = i < n ? w[(n + warp) * ld + i] : zero;
+      u[e] = make_float2(y.x * di[e], -y.y * di[e]);
+    }
+    back_substitute(u, di, w, ld, n, lane);
+    write(u, warp);
+  }
+  if (WIDE) {
+    for (int c = kMaxR + warp; c < r; c += NW) {
+      float2 u[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int i = lane + 32 * e;
+        u[e] = i < n ? b_g[i * r + c] : zero;
+      }
+      forward_substitute(u, w, dinv, ld, n, lane);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) u[e] = make_float2(u[e].x * di[e], u[e].y * di[e]);
+      back_substitute(u, di, w, ld, n, lane);
+      write(u, c);
     }
   }
 }
 
-template <int NB>
+// n > kMaxN: the factor in the device workspace `work` (batch, n, n), the
+// right-hand sides in `zwork` (batch, r, n); see the note at the top.
+__global__ void __launch_bounds__(TG * TG)
+hpd_solve_blocked_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
+                         float2* __restrict__ X, float2* work, float2* zwork, int n, int r) {
+  constexpr int kNT = TG * TG;
+  __shared__ float2 p_s[kPanel][kPanel + 1];  // a tile's rows of the panel
+  __shared__ float2 g_s[kPanel][kPanel + 1];  // its columns' rows, conjugated, over d
+  __shared__ int bad;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t sys = blockIdx.x, nn = (size_t)n * n;
+  const float2* a_g = A + sys * nn;
+  float2* w = work + sys * nn;
+  const float2 zero = make_float2(0.0f, 0.0f);
+
+  for (size_t e = tid; e < nn; e += kNT) w[e] = a_g[e];
+  if (tid == 0) bad = 0;
+  __syncthreads();
+
+  for (int c0 = 0; c0 < n; c0 += kPanel) {
+    const int c1 = min(c0 + kPanel, n), np = c1 - c0;
+    // the panel: W[i][v] −= W[i][j] · conj(W[v][j]) / d_j for j < v < c1, v ≤ i
+    for (int j = c0; j < c1; ++j) {
+      const float d = w[(size_t)j * n + j].x;
+      const float inv = 1.0f / d;
+      const int wc = c1 - j - 1;
+      const int total = (n - j - 1) * wc;
+      for (int e = tid; e < total; e += kNT) {
+        const int i = j + 1 + e / wc, v = j + 1 + e % wc;
+        if (v <= i) {
+          const float2 f = w[(size_t)i * n + j], g = w[(size_t)v * n + j];
+          const float2 gi = make_float2(g.x * inv, -g.y * inv);
+          float2 x = w[(size_t)i * n + v];
+          // rounded as the register kernel rounds: the product, then the difference
+          x.x -= fmaf(-f.y, gi.y, f.x * gi.x);
+          x.y -= fmaf(f.y, gi.x, f.x * gi.y);
+          w[(size_t)i * n + v] = x;
+        }
+      }
+      if (tid == 0) {
+        w[(size_t)j * n + j].y = inv;
+        if (!(d > 0.0f)) bad = 1;  // NaN too
+      }
+      __syncthreads();
+    }
+    // the trailing triangle, c1 ≤ v ≤ i, a 32 × 32 tile (ti, tv ≤ ti) at a time
+    const int nt = (n - c1 + kPanel - 1) / kPanel;
+    for (int ti = 0; ti < nt; ++ti) {
+      for (int tv = 0; tv <= ti; ++tv) {
+        const int i0 = c1 + kPanel * ti, v0 = c1 + kPanel * tv;
+        for (int e = tid; e < kPanel * kPanel; e += kNT) {
+          const int q = e / kPanel, k = e % kPanel;
+          float2 pv = zero, gv = zero;
+          if (k < np) {
+            if (i0 + q < n) pv = w[(size_t)(i0 + q) * n + c0 + k];
+            if (v0 + q < n) {
+              const float2 g = w[(size_t)(v0 + q) * n + c0 + k];
+              const float inv = w[(size_t)(c0 + k) * n + c0 + k].y;
+              gv = make_float2(g.x * inv, -g.y * inv);
+            }
+          }
+          p_s[q][k] = pv;
+          g_s[q][k] = gv;
+        }
+        __syncthreads();
+        const int tx = tid % kPanel, v = v0 + tx;
+        for (int q = tid / kPanel; q < kPanel; q += kNT / kPanel) {
+          const int i = i0 + q;
+          if (i < n && v <= i) {
+            float2 acc = zero;
+            for (int k = 0; k < np; ++k) {
+              const float2 f = p_s[q][k], g = g_s[tx][k];
+              acc.x = fmaf(f.x, g.x, fmaf(-f.y, g.y, acc.x));
+              acc.y = fmaf(f.x, g.y, fmaf(f.y, g.x, acc.y));
+            }
+            float2 x = w[(size_t)i * n + v];
+            x.x -= acc.x;
+            x.y -= acc.y;
+            w[(size_t)i * n + v] = x;
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // L = W / D below the diagonal, its conjugate transpose above
+  for (size_t e = tid; e < nn; e += kNT) {
+    const int i = (int)(e / n), j = (int)(e % n);
+    if (j < i) {
+      const float2 x = w[e];
+      const float inv = w[(size_t)j * n + j].y;
+      w[e] = make_float2(x.x * inv, x.y * inv);
+      w[(size_t)j * n + i] = make_float2(x.x * inv, -x.y * inv);
+    }
+  }
+  __syncthreads();
+
+  // a warp a right-hand side: L·z = b, z /= D, Lᴴ·x = z
+  const float2* b_g = B + sys * n * r;
+  float2* x_g = X + sys * n * r;
+  const bool isbad = bad != 0;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int c = warp; c < r; c += NW) {
+    float2* z = zwork + (sys * r + c) * n;
+    for (int i = lane; i < n; i += 32) z[i] = b_g[(size_t)i * r + c];
+    __syncwarp();
+    for (int j = 0; j < n; ++j) {  // z_i −= L[i][j] z_j, row j of the upper copy
+      const float2 zj = z[j];
+      const float2* u = w + (size_t)j * n;
+      for (int i = j + 1 + lane; i < n; i += 32) {
+        const float2 l = u[i];  // conj(L[i][j])
+        float2 t = z[i];
+        t.x -= fmaf(l.y, zj.y, l.x * zj.x);
+        t.y -= fmaf(-l.y, zj.x, l.x * zj.y);
+        z[i] = t;
+      }
+      __syncwarp();
+    }
+    for (int i = lane; i < n; i += 32) {
+      const float inv = w[(size_t)i * n + i].y;
+      z[i] = make_float2(z[i].x * inv, z[i].y * inv);
+    }
+    __syncwarp();
+    for (int j = n - 1; j > 0; --j) {  // z_i −= conj(L[j][i]) x_j, row j of L
+      const float2 xj = z[j];
+      const float2* l_row = w + (size_t)j * n;
+      for (int i = lane; i < j; i += 32) {
+        const float2 l = l_row[i];
+        float2 t = z[i];
+        t.x -= fmaf(l.y, xj.y, l.x * xj.x);
+        t.y -= fmaf(-l.y, xj.x, l.x * xj.y);
+        z[i] = t;
+      }
+      __syncwarp();
+    }
+    for (int i = lane; i < n; i += 32) {
+      x_g[(size_t)i * r + c] = isbad ? make_float2(nan, nan) : z[i];
+    }
+  }
+}
+
+template <int NB, bool WIDE>
 int launch_instance(const float2* A, const float2* B, float2* X, int batch, int n, int r,
                     cudaStream_t stream) {
   // The attribute is set once an instance and device, for the largest system.
@@ -258,14 +470,21 @@ int launch_instance(const float2* A, const float2* B, float2* X, int batch, int 
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices || !ready[dev]) {
-    err = cudaFuncSetAttribute(hpd_solve_kernel<NB>,
+    err = cudaFuncSetAttribute(hpd_solve_kernel<NB, WIDE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) ready[dev] = true;
   }
-  const size_t smem = (size_t)(n + r) * (n | 1) * sizeof(float2);
-  hpd_solve_kernel<NB><<<batch, TG * TG, smem, stream>>>(A, B, X, n, r);
+  const size_t smem = (size_t)(n + min(r, kMaxR)) * (n | 1) * sizeof(float2);
+  hpd_solve_kernel<NB, WIDE><<<batch, TG * TG, smem, stream>>>(A, B, X, n, r);
   return (int)cudaGetLastError();
+}
+
+template <int NB>
+int launch_r(const float2* A, const float2* B, float2* X, int batch, int n, int r,
+             cudaStream_t stream) {
+  return r > kMaxR ? launch_instance<NB, true>(A, B, X, batch, n, r, stream)
+                   : launch_instance<NB, false>(A, B, X, batch, n, r, stream);
 }
 
 }  // namespace
@@ -273,24 +492,32 @@ int launch_instance(const float2* A, const float2* B, float2* X, int batch, int 
 extern "C" {
 
 // A: (batch, n, n) complex64, B and X: (batch, n, r) complex64, all
-// contiguous on the device. Returns cudaGetLastError() after the launch.
-int hpd_solve_launch(const void* A, const void* B, void* X, int batch, int n, int r,
-                     void* stream) {
-  if (n < 1 || n > kMaxN || r < 1 || r > kMaxR) return (int)cudaErrorInvalidValue;
+// contiguous on the device; n ≥ 1, r ≥ 1. For n > 128, work (batch, n, n)
+// and zwork (batch, r, n) complex64 device scratch (else unused, may be
+// null). Returns cudaGetLastError() after the launch.
+int hpd_solve_launch(const void* A, const void* B, void* X, void* work, void* zwork, int batch,
+                     int n, int r, void* stream) {
+  if (n < 1 || r < 1) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const float2* a = (const float2*)A;
   const float2* b = (const float2*)B;
   float2* x = (float2*)X;
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > kMaxN) {
+    if (work == nullptr || zwork == nullptr) return (int)cudaErrorInvalidValue;
+    hpd_solve_blocked_kernel<<<batch, TG * TG, 0, s>>>(a, b, x, (float2*)work, (float2*)zwork, n,
+                                                      r);
+    return (int)cudaGetLastError();
+  }
   switch ((n + TG - 1) / TG) {
-    case 1: return launch_instance<1>(a, b, x, batch, n, r, s);
-    case 2: return launch_instance<2>(a, b, x, batch, n, r, s);
-    case 3: return launch_instance<3>(a, b, x, batch, n, r, s);
-    case 4: return launch_instance<4>(a, b, x, batch, n, r, s);
-    case 5: return launch_instance<5>(a, b, x, batch, n, r, s);
-    case 6: return launch_instance<6>(a, b, x, batch, n, r, s);
-    case 7: return launch_instance<7>(a, b, x, batch, n, r, s);
-    default: return launch_instance<8>(a, b, x, batch, n, r, s);
+    case 1: return launch_r<1>(a, b, x, batch, n, r, s);
+    case 2: return launch_r<2>(a, b, x, batch, n, r, s);
+    case 3: return launch_r<3>(a, b, x, batch, n, r, s);
+    case 4: return launch_r<4>(a, b, x, batch, n, r, s);
+    case 5: return launch_r<5>(a, b, x, batch, n, r, s);
+    case 6: return launch_r<6>(a, b, x, batch, n, r, s);
+    case 7: return launch_r<7>(a, b, x, batch, n, r, s);
+    default: return launch_r<8>(a, b, x, batch, n, r, s);
   }
 }
 

@@ -22,8 +22,8 @@ knows only its pilots and the 3GPP candidate set. Per frame:
 Every contraction is complex64 or float32 at full precision (TF32 is off,
 ``device.resolve_device``): the JAX package notes that a reduced-precision
 gram leaves it non-Hermitian at the 1e-3 level and the Cholesky fails.
-Both solves are library calls, as they are XLA solves in the JAX package:
-the 75×75 system's 152 right-hand sides are beyond ``ops.hpd_solve``.
+Both solves are library calls, as they are XLA solves in the JAX package,
+which gives them no Pallas kernel.
 """
 from __future__ import annotations
 

@@ -13,14 +13,21 @@ be reached while a shell is empty), a single pilot, a regular lattice
 K not a multiple of 32, 1% and 25% density, and the regular patterns of
 ``physics.pilots``: comb (a lattice staggered by symbol; at 15% cut to
 the pilot-slot capacity mid-row) and block (whole pilot rows: one or two
-of the 14).
+of the 14). The envelope adds 140 symbols (an LTE radio frame) and a
+100 MHz NR carrier's K = 3275; any case may be
+drawn with more than 8 antennas (R = 9, 16, 64: chunks of the antenna
+loop).
 
 Slot form (``interp``): the kernel sorts pilots by subcarrier and gives
 every column a window of the same length, so the cases are a column
 holding all S symbols' pilots (ties in the stable sort), fewer valid
 slots than the 128-candidate window, fewer slots than 128 altogether,
 and comb and block pilots (a block column holds one or two pilots, its
-row all 599).
+row all 599). The envelope adds P past what a block's shared memory
+holds for one frame (the NR carrier at the 15% cap, and 140 symbols),
+which the kernel takes tile by tile, and valid slots that share a
+resource element (a tile's pilots then pass what its plan stages at
+once, and it takes them in passes).
 
 HPD solve (``hpd_solve``): the kernel lays a grid of 16 × 16 threads
 over the matrix in blocks, so the cases are n = 1 and 2, n at and around
@@ -31,7 +38,11 @@ definite: first, middle and last of a batch, one with a NaN entry, one
 whose pivot turns negative only at the last column. The widest instance
 (n = 113-128, all eight column blocks and the ninth row block in use)
 has four more cases with R = 8 and seeds of their own, three of them a
-single system.
+single system. The envelope adds R past the 8 right-hand sides that ride
+the elimination (9, 16, 64; not positive definite with 16) and n past
+the register kernel's 128, which the blocked kernel takes: 129 (a last
+panel of one column), 160 with R = 64 (five whole panels), 300 with
+R = 9, and the failures again at n = 140, 150 and 200.
 """
 from __future__ import annotations
 
@@ -41,8 +52,13 @@ import numpy as np
 import torch
 
 GRID_CASES = ("one_row", "single_pilot", "lattice", "full", "s1_k45", "density_1", "density_25",
-              "comb", "block")
-SLOT_CASES = ("full_column", "few_valid", "few_slots", "comb", "block")
+              "comb", "block", "s140", "nr_carrier")
+SLOT_CASES = ("full_column", "few_valid", "few_slots", "comb", "block", "past_cap", "s140",
+              "dup_slots")
+#: antenna counts past the 8 a thread accumulates at once
+WIDE_R = (9, 16, 64)
+#: a 100 MHz NR carrier at 30 kHz: 273 PRB, FFT 4096, 3276 useful subcarriers less DC
+NR_K = 3275
 #: densities of the frames of the comb and block cases (max density 0.15)
 PATTERN_DENSITIES = {"comb": (0.01, 0.10, 0.15), "block": (0.01, 0.15)}
 #: name → (systems, n, right-hand sides, condition number)
@@ -57,6 +73,11 @@ HPD_SHAPES = {
     "last_pivot": (4, 33, 3, 100.0),
     "n113": (1, 113, 8, 100.0), "n120": (2, 120, 8, 100.0), "n127": (1, 127, 8, 100.0),
     "n128_again": (1, 128, 8, 100.0),
+    "r9": (3, 45, 9, 100.0), "r16": (2, 128, 16, 100.0), "r64": (4, 45, 64, 100.0),
+    "r64_n128": (1, 128, 64, 100.0), "not_pd_r16": (7, 20, 16, 100.0),
+    "n129": (2, 129, 4, 100.0), "n160_r64": (1, 160, 64, 100.0), "n300_r9": (1, 300, 9, 100.0),
+    "not_pd_n140": (7, 140, 4, 100.0), "nan_entry_n150": (2, 150, 4, 100.0),
+    "last_pivot_n200": (3, 200, 3, 100.0),
 }
 HPD_CASES = tuple(HPD_SHAPES)
 
@@ -97,6 +118,11 @@ def grid_case(name: str, r: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     elif name in ("density_1", "density_25"):
         density = 0.01 if name == "density_1" else 0.25
         mask = (rng.random((2, s, k)) < density).astype(np.float32)
+    elif name == "s140":
+        s, k = 140, 160
+        mask = (rng.random((2, s, k)) < np.array([0.10, 0.01])[:, None, None]).astype(np.float32)
+    elif name == "nr_carrier":
+        mask = (rng.random((1, s, NR_K)) < 0.10).astype(np.float32)
     elif name in PATTERN_DENSITIES:
         mask = _regular(name).mask.numpy()
     else:
@@ -136,6 +162,20 @@ def slot_case(name: str, r: int = 2) -> Dict[str, object]:
     elif name == "few_slots":
         grid, p = (6, 100), 90
         frames = [_slots(rng, *grid, n, p) for n in (60, 90)]
+    elif name == "past_cap":
+        grid, p = (14, NR_K), 6878  # the pilot-slot capacity at 15%
+        frames = [_slots(rng, *grid, n, p) for n in (6878, 4000)]
+    elif name == "s140":
+        grid, p = (140, 160), 3360
+        frames = [_slots(rng, *grid, n, p, column=c) for n, c in ((3360, 7), (500, None))]
+    elif name == "dup_slots":
+        grid, p = (14, 599), 2400
+        # every slot in columns 0-127, 2400 on 1792 elements; then twenty
+        # slots repeated on their elements among 300
+        crowded = np.stack([rng.integers(0, 14, p), rng.integers(0, 128, p)], -1)
+        pos, valid = _slots(rng, *grid, 320, p)
+        pos[300:320] = pos[:20]
+        frames = [(crowded.astype(np.int32), np.ones(p, np.float32)), (pos, valid)]
     elif name in PATTERN_DENSITIES:
         grid, pat = (14, 599), _regular(name)
         frames = list(zip(pat.positions.numpy(), pat.valid.numpy()))
@@ -159,15 +199,15 @@ def hpd_case(name: str) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]:
     gram = x @ np.conj(np.swapaxes(x, 1, 2)) + (n / cond) * np.eye(n)
     gram = 0.5 * (gram + np.conj(np.swapaxes(gram, 1, 2)))
     bad: Tuple[int, ...] = ()
-    if name == "not_pd":
+    if name.startswith("not_pd"):
         bad = (0, 3, 6)
         gram[0] = -np.eye(n)  # fails at the first pivot
         gram[3] -= 2.0 * np.linalg.eigvalsh(gram[3])[n // 2] * np.eye(n)  # indefinite
         gram[6] = -gram[6]
-    elif name == "nan_entry":
+    elif name.startswith("nan_entry"):
         bad = (1,)
         gram[1, 5, 2] = gram[1, 2, 5] = np.nan
-    elif name == "last_pivot":
+    elif name.startswith("last_pivot"):
         bad = (2,)
         chol = np.linalg.cholesky(gram[2])
         gram[2, n - 1, n - 1] -= 2.0 * chol[n - 1, n - 1].real ** 2  # last pivot -L²

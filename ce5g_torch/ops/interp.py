@@ -29,11 +29,20 @@ operations per candidate for 'cubic'); the source note has the design
 and the numbers. On a CPU tensor it runs :func:`interpolate_slots_plain`,
 the same function in plain PyTorch.
 
-``launches`` counts kernel launches.
+That design keeps a frame's R·P values in one block's shared memory, so
+:func:`plan` takes it ('frame') only for R ≤ 8 where they fit. Any other
+R and P take route 'tile': a first kernel sorts each frame into a device
+scratch, and a block per tile of columns stages just the sorted pilots
+its columns' windows reach, four antennas at a time. The squared
+distances are float32, exact while S² + K² ≤ 2²⁴ (S, K ≤ 4096).
+
+``launches`` counts wrapper calls that launched the kernel (one or two
+CUDA launches, by route).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -42,13 +51,94 @@ from . import _build
 
 _CANDIDATES = 128
 _METHODS = ("nearest", "linear", "cubic")
-_MAX_R = 8
+#: most antennas route 'frame' holds
+_FRAME_R = 8
 #: shared memory a block may use on the H100
 _MAX_SMEM = 232448
 #: the kernel holds squared distances in float32, exact up to 2^24
 _MAX_D2 = 1 << 24
+_MAX_SK = 4096
+_TILE = 128  # most columns a block of route 'tile' takes
+_COLS = 16  # columns a warp takes at once
+ROUTES = ("frame", "tile")
 
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel takes R antennas, P slots on an S × K grid.
+
+    Route 'frame': a block a frame (``tile`` = K, ``tiles`` = 1).
+    Route 'tile': ``tiles`` blocks a frame of ``tile`` columns each, each
+    staging at most ``cap`` sorted pilots; ``sort_smem`` is the first
+    kernel's shared memory. ``rc`` antennas are taken at a time, the last
+    chunk padded (``antennas``: the (first, count) chunks); ``smem`` is the
+    interpolating block's dynamic shared memory in bytes.
+    """
+
+    route: str
+    rc: int
+    antennas: Tuple[Tuple[int, int], ...]
+    tile: int
+    tiles: int
+    cap: int
+    smem: int
+    sort_smem: int = 0
+
+    def columns(self, k: int):
+        """The (first, count) column range of each block of a frame."""
+        return tuple((t * self.tile, min(self.tile, k - t * self.tile))
+                     for t in range(self.tiles))
+
+
+def _frame_smem(r: int, p: int, k: int) -> int:
+    """Route 'frame''s block: values, sorted coordinates, keys, sorted
+    slots and the column starts and counts (see csrc/interp.cu)."""
+    return 8 * r * p + 4 * 4 * p + 4 * (2 * k + 1)
+
+
+def _check_shape(r: int, p: int, s: int, k: int) -> None:
+    if not (r >= 1 and p >= 1 and 1 <= s <= _MAX_SK and 1 <= k <= _MAX_SK
+            and s * s + k * k <= _MAX_D2):
+        raise ValueError(f"interpolation kernel takes R ≥ 1, P ≥ 1, S, K ≤ {_MAX_SK} and "
+                         f"S² + K² ≤ {_MAX_D2}; got R={r}, P={p}, S={s}, K={k}")
+
+
+def _frame_plan(r: int, p: int, k: int) -> Plan:
+    rc = 4 if r % 4 == 0 else 2 if r % 2 == 0 else 1
+    return Plan("frame", rc, tuple((c, rc) for c in range(0, r, rc)), k, 1, p,
+                _frame_smem(r, p, k))
+
+
+def _tile_plan(r: int, p: int, s: int, k: int) -> Plan:
+    rc = 1 if r == 1 else 2 if r == 2 else 4
+    c = min(_CANDIDATES, p)
+    per = 8 + 8 * rc  # a staged pilot's coordinates and values
+    tile = min(_TILE, k, max(1, (_MAX_SMEM // 2 // per - c) // s + 1))
+    if tile > _COLS:
+        tile -= tile % _COLS
+    cap = min(p, s * (tile - 1) + c)
+    cap += cap % 2  # the values start 16-byte aligned
+    antennas = tuple((a, min(rc, r - a)) for a in range(0, r, rc))
+    return Plan("tile", rc, antennas, tile, -(-k // tile), cap, per * cap, 4 * (2 * k + 1))
+
+
+def plan(r: int, p: int, s: int, k: int) -> Plan:
+    """The launch of R antennas and P slots on an S × K grid: route
+    'frame' where R ≤ 8 and the frame fits in a block's 232 448 bytes of
+    shared memory, else 'tile', whose tile width T ≤ 128 (a multiple of 16
+    where it can be) keeps its window union, min(P, S·(T − 1) + 128)
+    sorted pilots of 8 + 8·RC bytes, within half of it (two blocks an SM).
+    A tile whose union is longer (two valid slots on one resource element)
+    is taken in passes of at most ``cap`` pilots."""
+    _check_shape(r, p, s, k)
+    fits = r <= _FRAME_R and _frame_smem(r, p, k) <= _MAX_SMEM
+    return _plan(r, p, s, k, "frame" if fits else "tile")
+
+
+def _plan(r: int, p: int, s: int, k: int, route: str) -> Plan:
+    return _frame_plan(r, p, k) if route == "frame" else _tile_plan(r, p, s, k)
 
 
 def _check_method(method: str) -> None:
@@ -132,16 +222,11 @@ def interpolate_slots_plain(pilot_values: torch.Tensor, positions: torch.Tensor,
     return torch.complex(apply(v_cand.real), apply(v_cand.imag))
 
 
-def _smem_bytes(r: int, p: int, k: int) -> int:
-    """Shared memory of one block of the kernel (see csrc/interp.cu)."""
-    return 8 * r * p + 4 * 4 * p + 4 * (2 * k + 1)
-
-
 def _lib() -> ctypes.CDLL:
     lib = _build.library("interp")
     fn = lib.interp_launch
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return lib
 
@@ -153,9 +238,7 @@ def interpolate_slots(pilot_values: torch.Tensor, positions: torch.Tensor,
 
     Args:
         pilot_values: (B, R, P) complex64 values per (padded) pilot slot.
-        positions: (B, P, 2) int32 (symbol, subcarrier) of each slot; the
-            valid slots of a frame lie on the grid, each on its own
-            resource element.
+        positions: (B, P, 2) int32 (symbol, subcarrier) of each slot.
         valid: (B, P) float32 slot validity (1 or 0).
         grid_shape: (S, K).
         method: 'nearest' | 'linear' | 'cubic'.
@@ -183,22 +266,31 @@ def interpolate_slots(pilot_values: torch.Tensor, positions: torch.Tensor,
         raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {dev}")
     if pilot_values.dtype != torch.complex64:
         raise TypeError(f"interpolation kernel takes complex64, got {pilot_values.dtype}")
-    smem = _smem_bytes(r, p, k)
-    if r > _MAX_R or smem > _MAX_SMEM or s * s + k * k > _MAX_D2:
-        raise ValueError(
-            f"interpolation kernel takes R ≤ {_MAX_R}, S² + K² ≤ {_MAX_D2} and "
-            f"{smem} ≤ {_MAX_SMEM} bytes of shared memory; got R={r}, P={p}, S={s}, K={k}"
-        )
-    out = torch.empty(b, r, s, k, dtype=torch.complex64, device=dev)
     if p == 0:
-        return out.zero_()
+        return torch.zeros(b, r, s, k, dtype=torch.complex64, device=dev)
+    return _launch(plan(r, p, s, k), pilot_values, positions, valid, grid_shape, method)
+
+
+def _launch(pl: Plan, pilot_values, positions, valid, grid_shape, method):
+    """Launch the kernel by plan ``pl`` on checked CUDA inputs."""
+    b, r, p = pilot_values.shape
+    s, k = grid_shape
+    dev = pilot_values.device
+    _check_shape(r, p, s, k)
+    out = torch.empty(b, r, s, k, dtype=torch.complex64, device=dev)
     vals = pilot_values.contiguous()
     pos = positions.to(torch.int32).contiguous()
     ok = valid.to(torch.float32).contiguous()
+    order = starts = None
+    if pl.route == "tile":
+        order = torch.empty(b, p, dtype=torch.int32, device=dev)
+        starts = torch.empty(b, k + 1, dtype=torch.int32, device=dev)
     lib = _lib()
     status = lib.interp_launch(
-        vals.data_ptr(), pos.data_ptr(), ok.data_ptr(), out.data_ptr(), b, r, p, s, k,
-        _METHODS.index(method), torch.cuda.current_stream(dev).cuda_stream,
+        vals.data_ptr(), pos.data_ptr(), ok.data_ptr(), out.data_ptr(),
+        None if order is None else order.data_ptr(), None if starts is None else starts.data_ptr(),
+        b, r, p, s, k, _METHODS.index(method), pl.tile, pl.tiles, pl.cap, pl.rc, pl.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     global launches
     launches += 1

@@ -20,11 +20,20 @@ shape; the pruning makes it do less than :func:`work` counts. The source
 note has the design and the numbers. On a CPU tensor it runs
 :func:`interpolate_grid_plain`, the same function in plain PyTorch.
 
-``launches`` counts kernel launches.
+Any R (a thread accumulates 8 antennas at a time; the selection is made
+once a point) and any S: :func:`plan` keeps a frame's mask bits and a
+tile's candidates in shared memory where they fit ('shared'), and else
+writes the candidates to a device scratch by a first kernel ('global').
+K ≤ 32767 (a column is a 16-bit integer).
+
+``launches`` counts wrapper calls that launched the kernel (one or two
+CUDA launches, by route).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -32,12 +41,59 @@ from . import _build
 
 #: shared memory a block may use on the H100
 _MAX_SMEM = 232448
-_MAX_R = 8
-_MAX_S = 127
 _MAX_K = 32767
+_MAX_S = 65535  # a listed candidate keeps its row in 16 bits
 _TILE = 128  # most columns a block takes
+_RC = 8  # antennas a thread accumulates at once
+_LIST = 8  # accepted candidates a thread lists in shared memory
+_THREADS = 256
+ROUTES = ("shared", "global")
 
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel takes (R, S, K): ``tiles`` blocks a frame of
+    ``tile`` columns each; ``antennas`` the (first, count) chunks a thread
+    accumulates; ``smem`` the dynamic shared memory of a block of route
+    'shared' and ``cand_smem`` that of route 'global''s first kernel (its
+    second has only the 8 KB of lists)."""
+
+    route: str
+    tile: int
+    tiles: int
+    antennas: Tuple[Tuple[int, int], ...]
+    smem: int
+    cand_smem: int
+
+    def columns(self, k: int):
+        """The (first, count) column range of each tile."""
+        return tuple((t * self.tile, min(self.tile, k - t * self.tile))
+                     for t in range(self.tiles))
+
+
+def _plan(r: int, s: int, k: int, route: str) -> Plan:
+    if not (1 <= r and 1 <= s <= _MAX_S and 1 <= k <= _MAX_K):
+        raise ValueError(f"interpolation kernel takes R ≥ 1, 1 ≤ S ≤ {_MAX_S}, "
+                         f"1 ≤ K ≤ {_MAX_K}; got R={r}, S={s}, K={k}")
+    tiles = -(-k // _TILE)
+    tile = -(-k // tiles)
+    words = -(-k // 32)
+    antennas = tuple((c, min(_RC, r - c)) for c in range(0, r, _RC))
+    if route == "global":
+        return Plan(route, tile, tiles, antennas, 0, 20 * words)
+    smem = 8 * s * tile + 20 * s * words + 4 * _LIST * _THREADS
+    return Plan(route, tile, tiles, antennas, smem, 0)
+
+
+def plan(r: int, s: int, k: int) -> Plan:
+    """The launch of (R, S, K): route 'shared' where a block's shared
+    memory (the tile's candidates, 8 bytes a point; the frame's mask bits
+    and the four carried pilots of every word, 20 bytes a word; the lists)
+    fits in 232 448 bytes, else 'global'."""
+    pl = _plan(r, s, k, "shared")
+    return pl if pl.smem <= _MAX_SMEM else _plan(r, s, k, "global")
 
 
 def _fills(ok: torch.Tensor):
@@ -123,19 +179,11 @@ def interpolate_grid_plain(value_grid: torch.Tensor, mask: torch.Tensor, method:
     return torch.complex(apply(src.real), apply(src.imag))
 
 
-def _smem_bytes(s: int, k: int) -> int:
-    """Shared memory of one block of the kernel (see csrc/interp_fused.cu):
-    the tile's candidates, the frame's mask bits with four carried pilots
-    a word, and 8 listed candidates for each of 256 threads."""
-    tiles = -(-k // _TILE)
-    return 8 * s * -(-k // tiles) + 20 * s * -(-k // 32) + 4 * 8 * 256
-
-
 def _lib() -> ctypes.CDLL:
     lib = _build.library("interp_fused")
     fn = lib.interp_fused_launch
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return lib
 
@@ -166,19 +214,22 @@ def interpolate_grid_fused(value_grid: torch.Tensor, mask: torch.Tensor, method:
         raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {value_grid.device}")
     if value_grid.dtype != torch.complex64:
         raise TypeError(f"interpolation kernel takes complex64, got {value_grid.dtype}")
-    smem = _smem_bytes(s, k)
-    if r > _MAX_R or s > _MAX_S or k > _MAX_K or smem > _MAX_SMEM:
-        raise ValueError(
-            f"interpolation kernel takes R ≤ {_MAX_R}, S ≤ {_MAX_S}, K ≤ {_MAX_K} and "
-            f"{smem} ≤ {_MAX_SMEM} bytes of shared memory; got R={r}, S={s}, K={k}"
-        )
+    return _launch(plan(r, s, k), value_grid, mask, method)
+
+
+def _launch(pl: Plan, value_grid, mask, method):
+    """Launch the kernel by plan ``pl`` on checked CUDA inputs."""
+    b, r, s, k = value_grid.shape
     vals = value_grid.contiguous()
     m = mask.to(torch.float32).contiguous()
     out = torch.empty_like(vals)
+    cand = (torch.empty(b, s, k, 4, dtype=torch.int16, device=vals.device)
+            if pl.route == "global" else None)
     lib = _lib()
     status = lib.interp_fused_launch(
-        m.data_ptr(), vals.data_ptr(), out.data_ptr(), b, r, s, k,
-        int(method == "linear"), torch.cuda.current_stream(vals.device).cuda_stream,
+        m.data_ptr(), vals.data_ptr(), out.data_ptr(), None if cand is None else cand.data_ptr(),
+        b, r, s, k, int(method == "linear"), pl.tile, pl.tiles, pl.smem,
+        torch.cuda.current_stream(vals.device).cuda_stream,
     )
     global launches
     launches += 1

@@ -150,7 +150,24 @@ Phases, one line each; any failure exits non-zero:
      its plain version on the suite's HPD problem; (c) bench_factory into a
      temporary directory (an NCCL group of one rank started and destroyed
      by the command); (d) profile_bench, profile_fine (one batch a window)
-     and profile_solve, every row printed.
+     and profile_solve, every row printed;
+ 19. the envelope: the main path at three configurations past the
+     kernels' former shape limits, at full width — a 100 MHz NR carrier
+     (3GPP TS 38.101-1 Table 5.3.2-1, 273 PRB at 30 kHz: FFT 4096,
+     K = 3275, 3.5 GHz; ETU 200 Hz, 10 dB, 10% pilots) at 4×4 (batch 64;
+     ls, ls:cubic, mmse, mmse_full) and at 4 × 64 receive antennas (a
+     64T64R panel, batch 16; ls, ls:cubic, mmse_full), and one LTE radio
+     frame of 140 symbols at the bench numerology, 4×4 (batch 32; ls,
+     ls:cubic, mmse_full, whose n = 135 system takes the blocked HPD
+     kernel) — with NMSE (mmse_full within 0.15 dB of −1.249 dB and within
+     1e-6 of the rms of its float64 run), card against CPU on the first 2
+     frames at phase 5's tolerance, launches, each kernel held against its
+     plain version on the inputs the path gave it and timed there (``ms``
+     as in phase 7) beside its bound, peak memory; then each kernel, by
+     each of its routes, against its plain version on the hard cases with
+     9, 16 and 64 antennas, P past one block's shared memory, 140 symbols,
+     slots that share a resource element and HPD systems past n = 128;
+     last each interpolation route timed at the bench shapes.
 Each phase prints its wall time. Then the wall time, one JSON line of
 per-kernel numbers, and last the device line.
 
@@ -391,6 +408,26 @@ NOTEBOOK = os.path.join(REPO, "notebooks", "01_complete_demonstration_torch.ipyn
 NOTEBOOK_CPU_B = 4
 NOTEBOOK_AGREE_DB = 0.01
 WIENER_F64_TOL = 1e-4
+# Phase 19, the envelope: the 100 MHz NR carrier of 3GPP TS 38.101-1 Table
+# 5.3.2-1 (273 PRB at 30 kHz: FFT 4096, CP 288, 3276 useful subcarriers, so
+# K = 3275 without DC) at 3.5 GHz, with 4 TX antennas and 4 or 64 receive
+# antennas (a 64T64R panel, 3GPP TR 38.901 §7.3); and one LTE radio frame
+# (10 subframes, 140 symbols) at the bench numerology, where mmse_full's
+# time prior takes rank 15 at 200 Hz and its system n = 135 the blocked HPD
+# kernel: name → (receive antennas, symbols, carrier, batch, estimator pairs).
+ENVELOPE_CONFIGS = {
+    "nr100_4x4": (4, 14, "nr100", 64, (("ls", "linear"), ("ls", "cubic"), ("mmse", "linear"),
+                                       ("mmse_full", "linear"))),
+    "nr100_4x64": (64, 14, "nr100", 16, (("ls", "linear"), ("ls", "cubic"),
+                                         ("mmse_full", "linear"))),
+    "lte_frame_4x4": (4, 140, "bench", 32, (("ls", "linear"), ("ls", "cubic"),
+                                            ("mmse_full", "linear"))),
+}
+ENVELOPE_ANCHOR_DB = 10.0 * math.log10(3.0 / 4.0)  # mmse_full's 4-TX floor, −1.249 dB
+ENVELOPE_CPU_FRAMES = 2  # card against CPU, and each against float64, on the first frames
+ENVELOPE_FLOAT64_BOUND = 1e-6  # mmse_full against its float64 run, max error over the rms
+ENVELOPE_HPD_CASES = ("r9", "r16", "r64", "r64_n128", "not_pd_r16", "n129", "n160_r64",
+                      "n300_r9", "not_pd_n140", "nan_entry_n150", "last_pivot_n200")
 
 
 def quiet(*_):
@@ -2820,6 +2857,238 @@ def measuring_phase(dev, card, rates):
     return launches
 
 
+def envelope_config(num_rx, num_symbols, carrier):
+    """A configuration of ENVELOPE_CONFIGS: 4 TX and ``num_rx`` RX antennas,
+    ``num_symbols`` symbols, on the 100 MHz NR carrier or at the bench
+    numerology (FFT 1024, 15 kHz, K = 599)."""
+    from ce5g_torch import ChannelConfig, ExperimentConfig, MIMOConfig, OFDMConfig
+
+    if carrier == "nr100":
+        ofdm = OFDMConfig(fft_size=4096, cp_length=288, num_symbols=num_symbols,
+                          useful_subcarriers=3276, subcarrier_spacing=30000.0)
+        channel = ChannelConfig(carrier_freq=3.5e9)
+    else:
+        ofdm, channel = OFDMConfig(num_symbols=num_symbols), ChannelConfig()
+    return ExperimentConfig(ofdm=ofdm, channel=channel,
+                            mimo=MIMOConfig(num_tx=4, num_rx=num_rx))
+
+
+def envelope_against_cpu(dev, cfg, params, draws, pairs, n=ENVELOPE_CPU_FRAMES):
+    """The path on the card and on the CPU from the first ``n`` frames'
+    draws, at phase 5's tolerance (NMSE within 0.01 dB; the estimates
+    within 1e-4 of the rms, and mmse_full on each device within
+    ENVELOPE_FLOAT64_BOUND of the rms of its float64 run). Returns the
+    printed parts."""
+    import torch
+    from ce5g_torch.physics import FrameDraws, FrameParams
+
+    first = FrameParams(*(x[:n] for x in params))
+    drawn = FrameDraws(*(x[:n] for x in draws))
+    card_frames, on_card = run_path(dev, cfg, first, drawn, pairs)
+    cpu_frames, on_cpu = run_path(torch.device("cpu"), cfg, FrameParams(*(x.cpu() for x in first)),
+                                  FrameDraws(*(x.cpu() for x in drawn)), pairs)
+    parts = []
+    for est in on_card:
+        (h_card, db_card), (h_cpu, db_cpu) = on_card[est], on_cpu[est]
+        fail_unless(abs(db_card - db_cpu) < 0.01, f"{est} card vs CPU NMSE within 0.01 dB")
+        if est == "mmse_full":
+            for where, frames, h in (("card", card_frames, h_card), ("cpu", cpu_frames, h_cpu)):
+                ref = mmse_full_float64(cfg, frames)
+                rms = float((ref.abs() ** 2).mean().sqrt())
+                err = float((h.cpu().to(ref.dtype) - ref).abs().max()) / rms
+                fail_unless(err <= ENVELOPE_FLOAT64_BOUND,
+                            f"mmse_full on the {where} vs float64: max error {err:.2e} of rms "
+                            f"<= {ENVELOPE_FLOAT64_BOUND}")
+                parts.append(f"mmse_full {where} vs float64 {err:.2e}")
+        else:
+            rms = float((h_cpu.abs() ** 2).mean().sqrt())
+            err = float((h_card.cpu() - h_cpu).abs().max()) / rms
+            fail_unless(err <= 1e-4, f"{est} card vs CPU max error {err:.2e} of rms <= 1e-4")
+            parts.append(f"{est} {err:.2e}")
+    return parts
+
+
+def envelope_hard_cases(dev):
+    """Each kernel, by each of its routes (forced through the module's
+    private ``_launch``), against its plain version on the hard cases with
+    WIDE_R antennas (and 4 for the slot form's), every slot case past one
+    block's shared memory, 140 symbols, slots that share a resource element,
+    and the HPD systems of ENVELOPE_HPD_CASES (NaN pattern, both kernels)."""
+    import torch
+    from ce5g_torch.ops import hard_cases
+    from ce5g_torch.ops import hpd_solve as hpd_mod
+    from ce5g_torch.ops import interp as slot_mod
+    from ce5g_torch.ops import interp_fused as grid_mod
+
+    worst = {"interp_fused": 0.0, "interp": 0.0, "hpd_solve": 0.0}
+    for case in hard_cases.GRID_CASES:
+        for r in hard_cases.WIDE_R:
+            v, mask = (x.to(dev) for x in hard_cases.grid_case(case, r))
+            scale = float(v.abs().max())
+            for method in ("nearest", "linear"):
+                ref = grid_mod.interpolate_grid_plain(v, mask, method)
+                for route in grid_mod.ROUTES:
+                    pl = grid_mod._plan(r, *mask.shape[1:], route)
+                    err = float((grid_mod._launch(pl, v, mask, method) - ref).abs().max()) / scale
+                    fail_unless(err <= 1e-5, f"interp_fused {method} route {route} on hard case "
+                                             f"{case} (R = {r}): max abs error {err:.2e} of scale")
+                    worst["interp_fused"] = max(worst["interp_fused"], err)
+    for case in hard_cases.SLOT_CASES:
+        for r in (4,) + hard_cases.WIDE_R:
+            c = hard_cases.slot_case(case, r)
+            v, pos, valid = (c[key].to(dev) for key in ("values", "positions", "valid"))
+            scale = float(v.abs().max())
+            routes = [route for route in slot_mod.ROUTES if route == "tile"
+                      or slot_mod.plan(r, v.shape[-1], *c["grid"]).route == "frame"]
+            for method in ("nearest", "linear", "cubic"):
+                ref = slot_mod.interpolate_slots_plain(v, pos, valid, c["grid"], method)
+                for route in routes:
+                    pl = slot_mod._plan(r, v.shape[-1], *c["grid"], route)
+                    out = slot_mod._launch(pl, v, pos, valid, c["grid"], method)
+                    err = float((out - ref).abs().max()) / scale
+                    fail_unless(err <= 1e-5, f"interp {method} route {route} on hard case {case} "
+                                             f"(R = {r}): max abs error {err:.2e} of scale")
+                    fail_unless(bool((out[valid.sum(-1) == 0] == 0).all()),
+                                f"interp {method} route {route} on hard case {case}: empty frame -> 0")
+                    worst["interp"] = max(worst["interp"], err)
+    for case in ENVELOPE_HPD_CASES:
+        gram, rhs, bad = hard_cases.hpd_case(case)
+        gram, rhs = gram.to(dev), rhs.to(dev)
+        before = hpd_mod.launches
+        x = hpd_mod.hpd_solve(gram, rhs)
+        fail_unless(hpd_mod.launches == before + 1, f"hpd_solve on hard case {case} launched")
+        ref = hpd_mod.hpd_solve_plain(gram, rhs)
+        is_bad = torch.zeros(gram.shape[0], dtype=torch.bool, device=dev)
+        is_bad[list(bad)] = True
+        fail_unless(bool(torch.isnan(x[is_bad]).all()) and bool(torch.isfinite(x[~is_bad]).all()),
+                    f"hpd_solve on hard case {case}: NaN exactly for the systems not positive definite")
+        err = rel(x[~is_bad], ref[~is_bad])
+        fail_unless(err < 1e-4, f"hpd_solve on hard case {case}: relative error {err:.2e} < 1e-4")
+        worst["hpd_solve"] = max(worst["hpd_solve"], err)
+    print(f"  hard cases, every route against the plain version: interp_fused "
+          f"({', '.join(hard_cases.GRID_CASES)}; R = {', '.join(map(str, hard_cases.WIDE_R))}) "
+          f"worst {worst['interp_fused']:.3e} of scale; interp ({', '.join(hard_cases.SLOT_CASES)}; "
+          f"R = 4, {', '.join(map(str, hard_cases.WIDE_R))}) worst {worst['interp']:.3e} of scale; "
+          f"hpd_solve ({', '.join(ENVELOPE_HPD_CASES)}) worst relative error "
+          f"{worst['hpd_solve']:.3e}, NaN pattern equal")
+
+
+def route_times(main_args, parity_args):
+    """Each route of the two interpolation kernels, forced through the
+    module's private ``_launch``, timed on the bench shapes' inputs: the
+    grid form on the main path's, the slot form on the parity path's
+    (cubic, R = 2, P = 2096) and on the main path's ls:cubic ones (R = 4,
+    P = 1257). Each route is held to the plain version first."""
+    from ce5g_torch.ops import interp as slot_mod
+    from ce5g_torch.ops import interp_fused as grid_mod
+
+    vals, mask, method = main_args["interp_fused"]
+    ref = grid_mod.interpolate_grid_plain(vals, mask, method)
+    parts = []
+    for route in grid_mod.ROUTES:
+        pl = grid_mod._plan(vals.shape[1], *mask.shape[1:], route)
+        err = float((grid_mod._launch(pl, vals, mask, method) - ref).abs().max())
+        fail_unless(err <= 1e-5 * float(vals.abs().max()), f"interp_fused route {route} on the "
+                                                          f"main path's inputs: {err:.2e}")
+        ms = graph_ms(lambda: grid_mod._launch(pl, vals, mask, method))
+        parts.append(f"interp_fused {route} {ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f})")
+    for what, args in (("parity", parity_args["interp"]), ("main", main_args["interp"])):
+        v, pos, valid, grid, method = args
+        ref = slot_mod.interpolate_slots_plain(*args)
+        for route in slot_mod.ROUTES:
+            pl = slot_mod._plan(v.shape[1], v.shape[2], *grid, route)
+            err = float((slot_mod._launch(pl, *args) - ref).abs().max())
+            fail_unless(err <= 1e-5 * float(v.abs().max()), f"interp route {route} on the "
+                                                            f"{what} path's inputs: {err:.2e}")
+            ms = graph_ms(lambda: slot_mod._launch(pl, *args))
+            parts.append(f"interp {route} at the {what} path's {tuple(v.shape)} {method} "
+                         f"{ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f})")
+    print("  routes at the bench shapes (graph of 20, median of 5 replays): " + "; ".join(parts))
+
+
+def envelope_phase(dev, card, main_args, parity_args):
+    """Phase 19: the main path at each of ENVELOPE_CONFIGS with the launch
+    counters read around it, its checks and its kernels' times; then the
+    hard cases, and each interpolation route at the bench shapes. Returns
+    the launches of the configurations' runs."""
+    import torch
+    from ce5g_torch.ops import hpd_solve as hpd_mod
+    from ce5g_torch.ops import interp as slot_mod
+    from ce5g_torch.ops import interp_fused as grid_mod
+    from ce5g_torch.physics import PROFILE_INDEX, FrameParams, draw_frames
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(read_launches(), 0)
+    for name, (num_rx, num_symbols, carrier, b, pairs) in ENVELOPE_CONFIGS.items():
+        cfg = envelope_config(num_rx, num_symbols, carrier)
+        params = FrameParams(
+            torch.full((b,), PROFILE_INDEX["ETU"], dtype=torch.int32, device=dev),
+            torch.full((b,), 200.0, device=dev),
+            torch.full((b,), 10.0, device=dev),
+            torch.full((b,), 0.1, device=dev),
+        )
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with capturing() as cap:
+            reset_launches()
+            draws = draw_frames(torch.Generator(device=dev).manual_seed(19), params, cfg, device=dev)
+            frames, out = run_path(dev, cfg, params, draws, pairs)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        for est, (h, _) in out.items():
+            fail_unless(tuple(h.shape) == tuple(frames.channel.shape), f"{name} {est} estimate shape")
+            fail_unless(bool(torch.isfinite(h).all()), f"{name} {est} estimate finite")
+        full_db = out["mmse_full"][1]
+        fail_unless(abs(full_db - ENVELOPE_ANCHOR_DB) <= NMSE_SLACK_DB,
+                    f"{name} mmse_full NMSE {full_db:.4f} dB within {NMSE_SLACK_DB} dB of "
+                    f"{ENVELOPE_ANCHOR_DB:.3f} dB")
+        fail_unless(all(n > 0 for n in launches.values()),
+                    f"{name}: every kernel launched on the envelope path: {launches}")
+        k = cfg.ofdm.num_used_subcarriers
+        print(f"{name} (4x{num_rx}, {num_symbols} x {k}, ETU 200 Hz 10 dB 10% pilots, {b} frames): "
+              f"NMSE dB " + ", ".join(f"{est} {db:.4f}" for est, (_, db) in out.items())
+              + f"; launches " + ", ".join(f"{kn} {v}" for kn, v in launches.items())
+              + f"; peak memory {peak_gib:.2f} GiB")
+        print(f"  card vs CPU on the first {ENVELOPE_CPU_FRAMES} frames, max error of rms: "
+              + ", ".join(envelope_against_cpu(dev, cfg, params, draws, pairs)))
+        hold_against_plain(f"  {name}", cap.args)
+        gram, rhs = cap.args["hpd_solve"]
+        vals, mask, method = cap.args["interp_fused"]
+        slot_args = cap.args["interp"]
+        timed = {
+            "hpd_solve": (lambda: hpd_mod.hpd_solve(gram, rhs), hpd_mod.work(*rhs.shape),
+                          f"{tuple(gram.shape)} x {rhs.shape[-1]}, route "
+                          f"{hpd_mod.plan(*rhs.shape[1:]).route}"),
+            "interp_fused": (lambda: grid_mod.interpolate_grid_fused(vals, mask, method),
+                             grid_mod.work(mask, vals.shape[1], method),
+                             f"{tuple(vals.shape)} {method}, route "
+                             f"{grid_mod.plan(*vals.shape[1:]).route}"),
+            "interp": (lambda: slot_mod.interpolate_slots(*slot_args), slot_mod.work(*slot_args),
+                       f"{tuple(slot_args[0].shape)} {slot_args[-1]}, route "
+                       f"{slot_mod.plan(*slot_args[0].shape[1:], *slot_args[3]).route}"),
+        }
+        for kn, (fn, work, shape) in timed.items():
+            ms, ms_min, ms_max = graph_ms(fn)
+            bound_ms, bound_by = bound(*work)
+            print(f"  {kn}: kernel {ms:.4f} ms ({ms_min:.4f}-{ms_max:.4f} over 5 replays of a graph "
+                  f"of 20), bound {bound_ms:.4f} ms ({bound_by}) at {shape}")
+        if name == "lte_frame_4x4":
+            fail_unless(hpd_mod.plan(*rhs.shape[1:]).route == "blocked",
+                        f"{name}: mmse_full's system {tuple(gram.shape)} takes the blocked kernel")
+            plain_ms = cuda_ms(lambda: hpd_mod.hpd_solve_plain(gram, rhs))[0]
+            library_ms = cuda_ms(lambda: torch.linalg.solve(gram, rhs))[0]
+            print(f"  hpd_solve at {tuple(gram.shape)}: plain {plain_ms:.4f} ms, library "
+                  f"(torch.linalg.solve) {library_ms:.4f} ms, back to back")
+        for kn, v in launches.items():
+            total[kn] += v
+    envelope_hard_cases(dev)
+    route_times(main_args, parity_args)
+    print(f"  card: {card}")
+    print(f"phase 19 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     import torch
 
@@ -2956,6 +3225,7 @@ def main():
         cli_launches = cli_phase(dev, card, workdir, ds, serving_results, blind_results)
     notebook_launches = notebook_phase(dev, card)
     bench_launches = measuring_phase(dev, card, rates)
+    envelope_launches = envelope_phase(dev, card, captured, parity_args)
     for kern in kernels:
         kern["launches_by_path"] = {"main": launches[kern["name"]],
                                     "parity": parity_launches[kern["name"]],
@@ -2967,7 +3237,8 @@ def main():
                                     "time_domain": time_domain_launches[kern["name"]],
                                     "cli": cli_launches[kern["name"]],
                                     "notebook": notebook_launches[kern["name"]],
-                                    "bench": bench_launches[kern["name"]]}
+                                    "bench": bench_launches[kern["name"]],
+                                    "envelope": envelope_launches[kern["name"]]}
     print(f"wall time: {time.time() - wall_t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

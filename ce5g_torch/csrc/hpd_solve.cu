@@ -63,9 +63,52 @@
 // (n = 126).
 //
 // Larger systems (n > 128: mmse_full over one LTE radio frame of 140
-// symbols takes time rank 15 at 200 Hz, n = 135) take a second kernel,
-// hpd_solve_blocked_kernel, which keeps the factor in a device workspace,
-// one block a system as above:
+// symbols takes time rank 15 at 200 Hz, n = 135, and 19 at ETU 300 Hz,
+// n = 171) take hpd_solve_cluster_kernel, the same elimination over C = 1,
+// 2, 4 or 8 blocks of 256 threads a system (C = 1: one block, no cluster;
+// C > 1: a thread block cluster). It is bound as above by the chain of n
+// dependent steps, and a step costs the exchange of a column plus its
+// arithmetic, ≈ n²/C multiply-subtracts over 256·C threads:
+//  * The trapezoid, all of it, stays in registers. Row i of [[A], [Bᴴ]] is
+//    owned by block i mod C; the threads form a 16 × 16 grid over the
+//    cluster's rows (i ≡ q + C·ri mod 16·C) and the columns (v ≡ cv mod
+//    16), so that every block's share of a step shrinks alike as j grows.
+//    NA row blocks and NB column blocks are template arguments; element
+//    (a, b) is held when b < C·(a + 1), the band over the diagonal being
+//    computed and never published. A thread holds at most 56 elements.
+//  * No published matrix: column j lives in a column buffer of shared
+//    memory, one copy in each block; every block derives the pivots, and
+//    so the NaN flag, from its own copy. One block: two buffers, the
+//    owners of column j + 1 write it after step j, one block barrier.
+//  * A cluster exchanges its columns without a cluster barrier, which
+//    costs ≈ 1.2 µs a column (PERF.md). Each block has three buffers, each
+//    with an mbarrier. At step j the owners of column j + 1 compute it
+//    first, store their rows into their own block's buffer (and arrive on
+//    its barrier) and into the other blocks' with st.async, whose bytes
+//    each receiving barrier counts; one thread of each block expects the
+//    bytes of the rows that the other blocks own. The step's arithmetic
+//    then hides the exchange; step j + 1 starts when the block's barrier
+//    says the column is there, and a block barrier keeps the block's
+//    threads within a step of each other. Three buffers suffice: a block
+//    writes column j + 1 only once every block has published column j,
+//    so all have read column j − 2. One block still beats a cluster of 2
+//    by 1.3× at n = 135, so plan() takes one block wherever it holds the
+//    system.
+//  * Each element of L·D, when final, is also stored once into the block
+//    that holds its row for the backward substitution: block q holds rows
+//    [lo_q, lo_{q+1}) packed, lo_q the least m with m²·C ≥ q·n², about
+//    n² / (2C) entries a block. The last block keeps y'/d.
+//  * The backward substitution runs block after block, from the last rows
+//    up, a warp a right-hand side as above, reading its rows from its own
+//    shared memory; X carries the partial sums to the next block, with one
+//    cluster barrier between blocks.
+//  * At most 8 right-hand sides ride the elimination; more are chunks of 8,
+//    each a cluster of its own (the factor is recomputed in each, side by
+//    side on other SMs).
+// The registers bound the sizes: the instances listed below take n + R ≤
+// 384 (8 blocks of 256 threads, 48 elements a thread). A larger system
+// takes hpd_solve_blocked_kernel, which keeps the factor in a device
+// workspace, one block a system:
 //  * a blocked right-looking LDLᴴ: a panel of 32 columns is eliminated a
 //    column at a time (one barrier a column, every row of the panel's
 //    columns updated), then the trailing lower triangle takes the panel's
@@ -76,11 +119,12 @@
 //    the diagonal keeps (d, 1/d);
 //  * a warp per right-hand side then runs the forward and the backward
 //    substitution through a (R, n) workspace, one warp barrier a step.
-// The pivots' rule and the NaN contract are the same. It is bound by the
-// chain of n panel steps and the substitutions' 2n warp steps, each a
-// round trip to L1 or L2; PERF.md has its times.
+// The pivots' rule and the NaN contract are the same in all three.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <math.h>
 
 namespace {
 
@@ -318,7 +362,348 @@ hpd_solve_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
   }
 }
 
-// n > kMaxN: the factor in the device workspace `work` (batch, n, n), the
+// hpd_solve_cluster_kernel: rows lo … hi − 1 of W are packed in a block's
+// `ls`, row i (its i entries left of the diagonal) at i(i − 1)/2 − lo(lo − 1)/2.
+__device__ __forceinline__ int row_offset(int i, int lo) {
+  return i * (i - 1) / 2 - lo * (lo - 1) / 2;
+}
+
+// The first row that block q of c holds for the backward substitution:
+// the least m with m²·c ≥ q·n² (q = c gives n).
+__host__ __device__ inline int first_row(int n, int q, int c) {
+  const long long want = (long long)q * n * n;
+  int m = (int)sqrt((double)want / c);
+  while (m > 0 && (long long)(m - 1) * (m - 1) * c >= want) --m;
+  while ((long long)m * m * c < want) ++m;
+  return m;
+}
+
+// Backward substitution over rows hi − 1 … lo, by columns of Lᴴ = rows of
+// L read from `ls`, of one column held by a warp (entry i in lane i mod 32,
+// slot i / 32). On entry u_i is y'_i / d_i less the updates of the rows at
+// and past hi; on exit it is x_i for lo ≤ i < hi, and the entries below lo
+// carry the updates of rows lo … hi − 1.
+template <int NE>
+__device__ __forceinline__ void back_substitute_rows(float2 (&u)[NE], const float (&di)[NE],
+                                                     const float2* ls, int lo, int hi,
+                                                     int lane) {
+  const float2 zero = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int e = NE - 1; e >= 0; --e) {
+    const int top = min(32 * e + 31, hi - 1), bot = max(32 * e, lo);
+    if (top < bot) continue;
+    float2 l[NE], ln[NE];  // row j of L·D and, read a step ahead, row j − 1
+    const float2* row = ls + row_offset(top, lo);
+#pragma unroll
+    for (int e2 = 0; e2 <= e; ++e2) {
+      const int i = lane + 32 * e2;
+      l[e2] = i < top ? row[i] : zero;
+    }
+    for (int j = top; j >= bot; --j) {
+      row = ls + row_offset(j - 1, lo);
+#pragma unroll
+      for (int e2 = 0; e2 <= e; ++e2) {
+        const int i = lane + 32 * e2;
+        ln[e2] = (j > bot && i < j - 1) ? row[i] : zero;
+      }
+      float2 xj;
+      xj.x = __shfl_sync(0xffffffffu, u[e].x, j - 32 * e);
+      xj.y = __shfl_sync(0xffffffffu, u[e].y, j - 32 * e);
+#pragma unroll
+      for (int e2 = 0; e2 <= e; ++e2) {
+        const float2 ls2 = make_float2(l[e2].x * di[e2], l[e2].y * di[e2]);
+        // u_i −= conj(W[j][i]) / d_i · x_j; zero for i ≥ j
+        u[e2].x -= ls2.x * xj.x + ls2.y * xj.y;
+        u[e2].y -= ls2.x * xj.y - ls2.y * xj.x;
+        l[e2] = ln[e2];
+      }
+    }
+  }
+}
+
+// A cluster's column exchange: each block waits on an mbarrier of its own
+// for the column's rows that the other blocks store into its shared memory
+// with st.async (their bytes counted by the barrier's transaction count)
+// and for the arrivals of its own 16 owners of the column.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned cluster_addr(unsigned local, int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, int parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, P1;\n\t}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  // A column that never arrives is a fault: fail the launch, do not hang the card.
+  for (long long spin = 0; !mbar_try_wait(bar, parity); ++spin) {
+    if (spin > (1ll << 28)) __trap();
+  }
+}
+__device__ __forceinline__ void st_async(unsigned remote, float2 v, unsigned remote_bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];"
+               ::"r"(remote), "f"(v.x), "f"(v.y), "r"(remote_bar) : "memory");
+}
+
+// n > kMaxN: C blocks a system (blockIdx.x / C), each chunk of kMaxR
+// right-hand sides (blockIdx.y) its own cluster; see the note at the top.
+template <int C, int NA, int NB>
+__global__ void __launch_bounds__(TG * TG, 1)
+hpd_solve_cluster_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
+                         float2* __restrict__ X, int n, int r) {
+  constexpr int ROWS = TG * C * NA;        // row slots of the cluster: n + rc ≤ ROWS
+  constexpr int NE = (TG * NB + 31) / 32;  // entries of a column a lane holds
+  constexpr int NBUF = C == 1 ? 2 : 3;     // column j in col[j % NBUF], rows j … n + rc − 1
+  extern __shared__ float2 ls[];           // W's rows [lo, hi), packed
+  __shared__ float2 col[NBUF][ROWS];
+  __shared__ __align__(8) unsigned long long full[NBUF];  // C > 1: column j has arrived
+  __shared__ float2 yd[kMaxR][TG * NB];    // the last block's y'_j / d_j
+  __shared__ float dinv[TG * NB];
+  __shared__ int first[C + 1];             // block q's rows are first[q] … first[q + 1] − 1
+  __shared__ int bad;
+
+  namespace cg = cooperative_groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ri = tid / TG, cv = tid % TG;
+  const int q = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
+  const int rho = q + C * ri;              // rows rho + TG·C·a
+  const size_t sys = blockIdx.x / C;
+  const int c0 = kMaxR * blockIdx.y, rc = min(kMaxR, r - c0);
+  const int rows = n + rc;
+  const float2* a_g = A + sys * n * n;
+  const float2* b_g = B + sys * n * r;
+  float2* x_g = X + sys * n * r;
+  const float2 zero = make_float2(0.0f, 0.0f);
+
+  auto sync = [] {
+    if constexpr (C == 1) {
+      __syncthreads();
+    } else {
+      cg::this_cluster().sync();
+    }
+  };
+
+  if (tid <= C) first[tid] = first_row(n, tid, C);
+  if (tid == 0) bad = 0;
+  if constexpr (C > 1) {
+    if (tid < NBUF) {
+      mbar_init(smem_addr(&full[tid]), 1 + TG);  // the expect, the 16 owners
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  // The owned elements, straight from device memory; column 0 is final.
+  float2 x[NA][NB];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= C * (a + 1)) continue;
+      const int i = rho + TG * C * a, v = cv + TG * b;
+      x[a][b] = zero;
+      if (v <= i && v < n && i < rows) {
+        if (i < n) {
+          x[a][b] = a_g[(size_t)i * n + v];
+        } else {
+          const float2 t = b_g[(size_t)v * r + c0 + i - n];
+          x[a][b] = make_float2(t.x, -t.y);
+        }
+      }
+    }
+  }
+  // Every block of the cluster has started (its shared memory may be
+  // written) and first[] is set.
+  sync();
+  // Where each owned row of L·D goes: (block << 24) | its offset there.
+  int dest[NA];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const int i = rho + TG * C * a;
+    int k = 0;
+#pragma unroll
+    for (int t = 1; t < C; ++t) k += i >= first[t];
+    dest[a] = i < n ? (k << 24) | row_offset(i, first[k]) : -1;
+  }
+  // Element (i, p), final, into every block's column buffer (the other
+  // blocks' by st.async, counted by their barrier) and, below the diagonal,
+  // into the block that holds row i.
+  auto publish = [&](float2 val, int i, int p, int dst) {
+    float2* slot = &col[p % NBUF][i];
+    *slot = val;
+    if constexpr (C == 1) {
+      if (p < i && dst >= 0) ls[dst + p] = val;
+    } else {
+      const unsigned local = smem_addr(slot), bar = smem_addr(&full[p % NBUF]);
+#pragma unroll
+      for (int t = 1; t < C; ++t) {
+        const int rank = (q + t) & (C - 1);
+        st_async(cluster_addr(local, rank), val, cluster_addr(bar, rank));
+      }
+      if (p < i && dst >= 0) {
+        *cg::this_cluster().map_shared_rank(ls + (dst & 0xffffff) + p, dst >> 24) = val;
+      }
+    }
+  };
+  // The bytes of column p that the other blocks send this one: its rows
+  // p … rows − 1 that are not i ≡ q (mod C).
+  auto expect = [&](int p) {
+    auto own = [&](int m) { return m > q ? (m - q + C - 1) / C : 0; };
+    mbar_arrive_expect(smem_addr(&full[p % NBUF]),
+                       (int)sizeof(float2) * (rows - p - (own(rows) - own(p))));
+  };
+  if constexpr (C > 1) {
+    if (tid == 0) expect(0);
+  }
+  if (cv == 0) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      const int i = rho + TG * C * a;
+      if (i < rows) publish(x[a][0], i, 0, dest[a]);
+    }
+    if constexpr (C > 1) mbar_arrive(smem_addr(&full[0]));
+  }
+  if constexpr (C == 1) sync();
+
+  // Elimination: x[i][v] -= W[i][j] · conj(W[v][j]) / d_j for j < v ≤ i.
+#pragma unroll
+  for (int ph = 0; ph < NB; ++ph) {
+    const int jend = min(TG * (ph + 1), n);
+    for (int j = TG * ph; j < jend; ++j) {
+      if constexpr (C > 1) {
+        // The block's threads stay within a step of each other, so that
+        // col[(j + 1) % 3], written this step, was read two steps ago by all.
+        mbar_wait(smem_addr(&full[j % NBUF]), (j / NBUF) & 1);
+        __syncthreads();
+      }
+      const float2* cj = col[j % NBUF];
+      const float d = cj[j].x;
+      float2 f[NA], g[NB];
+#pragma unroll
+      for (int a = ph / C; a < NA; ++a) f[a] = cj[rho + TG * C * a];
+#pragma unroll
+      for (int b = ph; b < NB; ++b) g[b] = cj[cv + TG * b];
+      float inv;
+      asm("rcp.approx.f32 %0, %1;" : "=f"(inv) : "f"(d));
+      if (tid == 0) {
+        dinv[j] = inv;
+        if (!(d > 0.0f)) bad = 1;  // NaN too
+      }
+      // y'_j / d_j of each right-hand side, where the backward substitution starts
+      if (q == C - 1 && tid < rc) {
+        const float2 y = cj[n + tid];
+        yd[tid][j] = make_float2(y.x * inv, -y.y * inv);
+      }
+#pragma unroll
+      for (int b = ph; b < NB; ++b) g[b] = make_float2(g[b].x * inv, -g[b].y * inv);
+      // Column p = j + 1 is final after this step: its owners publish it.
+      // It lies in column block ph, or is the first column of block ph + 1.
+      // A cluster publishes it ahead of the step's arithmetic, computing the
+      // owned elements of column p first (the step updates them again, to
+      // the same values), so that the arithmetic hides the exchange; one
+      // block publishes after it.
+      const int p = j + 1;
+      const int pc = p - TG * ph;
+      if constexpr (C > 1) {
+        if (tid == 0 && p < n) expect(p);
+      }
+      auto publish_column = [&] {
+        if (p >= n || cv != (pc & (TG - 1))) return;
+        auto put = [&](int i, int dst, float2 t, float2 fa, float2 gb) {
+          if (p > i || i >= rows) return;
+          if constexpr (C > 1) {
+            t.x -= fmaf(-fa.y, gb.y, fa.x * gb.x);
+            t.y -= fmaf(fa.y, gb.x, fa.x * gb.y);
+          }
+          publish(t, i, p, dst);
+        };
+        if (pc < TG) {
+#pragma unroll
+          for (int a = ph / C; a < NA; ++a) put(rho + TG * C * a, dest[a], x[a][ph], f[a], g[ph]);
+        } else if (ph + 1 < NB) {
+          const int b1 = min(ph + 1, NB - 1);
+#pragma unroll
+          for (int a = (ph + 1) / C; a < NA; ++a) {
+            put(rho + TG * C * a, dest[a], x[a][b1], f[a], g[b1]);
+          }
+        }
+        if constexpr (C > 1) mbar_arrive(smem_addr(&full[p % NBUF]));
+      };
+      if constexpr (C > 1) publish_column();
+#pragma unroll
+      for (int b = ph; b < NB; ++b) {
+#pragma unroll
+        for (int a = b / C; a < NA; ++a) {
+          // rounded as the register kernel rounds: the product, then the difference
+          x[a][b].x -= fmaf(-f[a].y, g[b].y, f[a].x * g[b].x);
+          x[a][b].y -= fmaf(f[a].y, g[b].x, f[a].x * g[b].y);
+        }
+      }
+      if constexpr (C == 1) {
+        publish_column();
+        sync();
+      }
+    }
+  }
+  // The rows of L·D stored into other blocks, before the backward substitution
+  if constexpr (C > 1) sync();
+
+  // Warp c of each block takes right-hand side c0 + c, the blocks in turn
+  // from the last rows up; X carries the partial sums between them.
+  float di[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    const int i = lane + 32 * e;
+    di[e] = i < n ? dinv[i] : 0.0f;
+  }
+  const bool isbad = bad != 0;
+  const float nan = __int_as_float(0x7fc00000);
+  const int lo = first[q], hi = first[q + 1];
+#pragma unroll
+  for (int k = C - 1; k >= 0; --k) {
+    if (k == q && warp < rc) {
+      float2* xc = x_g + c0 + warp;
+      float2 u[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int i = lane + 32 * e;
+        u[e] = i >= hi ? zero : k == C - 1 ? yd[warp][i] : xc[(size_t)i * r];
+      }
+      back_substitute_rows(u, di, ls, lo, hi, lane);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int i = lane + 32 * e;
+        if (i < hi) xc[(size_t)i * r] = (isbad && i >= lo) ? make_float2(nan, nan) : u[e];
+      }
+    }
+    if constexpr (C > 1) {
+      if (k > 0) {
+        __threadfence();  // the partial sums in X
+        sync();
+      }
+    }
+  }
+}
+
+// Past every instance of hpd_solve_cluster_kernel: the factor in the device workspace `work` (batch, n, n), the
 // right-hand sides in `zwork` (batch, r, n); see the note at the top.
 __global__ void __launch_bounds__(TG * TG)
 hpd_solve_blocked_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
@@ -487,22 +872,98 @@ int launch_r(const float2* A, const float2* B, float2* X, int batch, int n, int 
                    : launch_instance<NB, false>(A, B, X, batch, n, r, stream);
 }
 
+// The instances of hpd_solve_cluster_kernel as X(C, NA, NB). An instance
+// takes any n ≤ 16·NB with n + min(R, 8) ≤ 16·C·NA; plan() in
+// ops/hpd_solve.py picks the least C, then the least instance that takes
+// (n, R). Columns past n cost their arithmetic and no steps, so a cluster,
+// bound by its exchange, loses little to a wide instance; one block, the
+// fastest where it holds the system, keeps two close fits. (2, 7, 14) and
+// (8, 3, 24) spill a few hundred bytes of registers.
+#define HPD_CLUSTER_INSTANCES(X) \
+  X(1, 9, 9) X(1, 10, 10) X(2, 6, 11) X(2, 7, 14) X(4, 4, 16) X(8, 3, 20) X(8, 3, 24)
+
+template <int C, int NA, int NB>
+int launch_cluster(const float2* A, const float2* B, float2* X, int batch, int n, int r,
+                   cudaStream_t stream) {
+  auto kernel = hpd_solve_cluster_kernel<C, NA, NB>;
+  // The block's packed rows of W: the largest share of the cluster.
+  size_t smem = 0;
+  for (int q = 0; q < C; ++q) {
+    const size_t lo = first_row(n, q, C), hi = first_row(n, q + 1, C);
+    const size_t share = (hi * (hi - 1) - lo * (lo - 1)) / 2 * sizeof(float2);
+    smem = share > smem ? share : smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * C, (r + kMaxR - 1) / kMaxR, 1);
+  cfg.blockDim = dim3(TG * TG, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  // Once an instance and device: allow the largest share shared memory
+  // holds and check that a cluster of C such blocks can be resident.
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !ready[dev]) {
+    int optin = 0;
+    cudaFuncAttributes fa;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - (int)fa.sharedSizeBytes);
+    if (err != cudaSuccess) return (int)err;
+    if (C > 1) {
+      cudaLaunchConfig_t most = cfg;
+      most.dynamicSmemBytes = optin - fa.sharedSizeBytes;
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &most);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    if (dev < kMaxDevices) ready[dev] = true;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, A, B, X, n, r);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int launch_cluster_for(const float2* A, const float2* B, float2* X, int batch, int n, int r,
+                       int c, int na, int nb, cudaStream_t stream) {
+  if (n <= kMaxN || n > TG * nb || n + min(r, kMaxR) > TG * c * na) return (int)cudaErrorInvalidValue;
+#define HPD_CLUSTER_CASE(C_, NA_, NB_) \
+  if (c == C_ && na == NA_ && nb == NB_) return launch_cluster<C_, NA_, NB_>(A, B, X, batch, n, r, stream);
+  HPD_CLUSTER_INSTANCES(HPD_CLUSTER_CASE)
+#undef HPD_CLUSTER_CASE
+  return (int)cudaErrorInvalidValue;  // no such instance
+}
+
 }  // namespace
 
 extern "C" {
 
 // A: (batch, n, n) complex64, B and X: (batch, n, r) complex64, all
-// contiguous on the device; n ≥ 1, r ≥ 1. For n > 128, work (batch, n, n)
-// and zwork (batch, r, n) complex64 device scratch (else unused, may be
-// null). Returns cudaGetLastError() after the launch.
+// contiguous on the device; n ≥ 1, r ≥ 1. blocks = 0: n ≤ 128 takes the
+// register kernel, n > 128 the blocked kernel with work (batch, n, n) and
+// zwork (batch, r, n) complex64 device scratch (else unused, may be null);
+// blocks = C ∈ {1, 2, 4, 8}: the cluster kernel's instance (C, na, nb), C
+// blocks a system. Returns the launch's CUDA error code.
 int hpd_solve_launch(const void* A, const void* B, void* X, void* work, void* zwork, int batch,
-                     int n, int r, void* stream) {
+                     int n, int r, int blocks, int na, int nb, void* stream) {
   if (n < 1 || r < 1) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const float2* a = (const float2*)A;
   const float2* b = (const float2*)B;
   float2* x = (float2*)X;
   cudaStream_t s = (cudaStream_t)stream;
+  if (blocks > 0) return launch_cluster_for(a, b, x, batch, n, r, blocks, na, nb, s);
   if (n > kMaxN) {
     if (work == nullptr || zwork == nullptr) return (int)cudaErrorInvalidValue;
     hpd_solve_blocked_kernel<<<batch, TG * TG, 0, s>>>(a, b, x, (float2*)work, (float2*)zwork, n,

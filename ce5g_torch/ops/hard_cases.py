@@ -40,9 +40,12 @@ whose pivot turns negative only at the last column. The widest instance
 has four more cases with R = 8 and seeds of their own, three of them a
 single system. The envelope adds R past the 8 right-hand sides that ride
 the elimination (9, 16, 64; not positive definite with 16) and n past
-the register kernel's 128, which the blocked kernel takes: 129 (a last
-panel of one column), 160 with R = 64 (five whole panels), 300 with
-R = 9, and the failures again at n = 140, 150 and 200.
+the register kernel's 128, which the cluster kernel takes with 1 to 8
+blocks a system: 129 (one row in the last column block), 135 and 171
+(mmse_full over one LTE radio frame at 200 and 300 Hz), 160 with R = 64
+(eight chunks of right-hand sides), 243, 300 with R = 9 (a chunk of one),
+and the failures again at n = 140, 150 and 200; and 400, past every
+cluster instance, which keeps the blocked kernel.
 """
 from __future__ import annotations
 
@@ -78,6 +81,8 @@ HPD_SHAPES = {
     "n129": (2, 129, 4, 100.0), "n160_r64": (1, 160, 64, 100.0), "n300_r9": (1, 300, 9, 100.0),
     "not_pd_n140": (7, 140, 4, 100.0), "nan_entry_n150": (2, 150, 4, 100.0),
     "last_pivot_n200": (3, 200, 3, 100.0),
+    "n135_r4": (3, 135, 4, 100.0), "n171_r4": (2, 171, 4, 100.0), "n243_r4": (2, 243, 4, 100.0),
+    "n400_r4": (1, 400, 4, 100.0),
 }
 HPD_CASES = tuple(HPD_SHAPES)
 

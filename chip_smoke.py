@@ -158,16 +158,21 @@ Phases, one line each; any failure exits non-zero:
      ls, ls:cubic, mmse, mmse_full) and at 4 × 64 receive antennas (a
      64T64R panel, batch 16; ls, ls:cubic, mmse_full), and one LTE radio
      frame of 140 symbols at the bench numerology, 4×4 (batch 32; ls,
-     ls:cubic, mmse_full, whose n = 135 system takes the blocked HPD
-     kernel) — with NMSE (mmse_full within 0.15 dB of −1.249 dB and within
+     ls:cubic, mmse_full), at ETU 200 Hz and 300 Hz, whose n = 135 and
+     171 systems take the HPD cluster kernel — with NMSE (mmse_full within 0.15 dB of −1.249 dB and within
      1e-6 of the rms of its float64 run), card against CPU on the first 2
      frames at phase 5's tolerance, launches, each kernel held against its
      plain version on the inputs the path gave it and timed there (``ms``
      as in phase 7) beside its bound, peak memory; then each kernel, by
      each of its routes, against its plain version on the hard cases with
      9, 16 and 64 antennas, P past one block's shared memory, 140 symbols,
-     slots that share a resource element and HPD systems past n = 128;
-     last each interpolation route timed at the bench shapes.
+     slots that share a resource element and HPD systems past n = 128
+     (every cluster size with an instance); the HPD solve past n = 128
+     timed by every cluster size, the blocked kernel the cluster route
+     replaced, the plain version and torch.linalg.solve, on the two LTE
+     frames' systems and random ones at n = 243 and 300 (the plan's route
+     no slower than the blocked kernel); last each interpolation route
+     timed at the bench shapes.
 Each phase prints its wall time. Then the wall time, one JSON line of
 per-kernel numbers, and last the device line.
 
@@ -412,22 +417,31 @@ WIENER_F64_TOL = 1e-4
 # 5.3.2-1 (273 PRB at 30 kHz: FFT 4096, CP 288, 3276 useful subcarriers, so
 # K = 3275 without DC) at 3.5 GHz, with 4 TX antennas and 4 or 64 receive
 # antennas (a 64T64R panel, 3GPP TR 38.901 §7.3); and one LTE radio frame
-# (10 subframes, 140 symbols) at the bench numerology, where mmse_full's
-# time prior takes rank 15 at 200 Hz and its system n = 135 the blocked HPD
-# kernel: name → (receive antennas, symbols, carrier, batch, estimator pairs).
+# (10 subframes, 140 symbols) at the bench numerology, at 200 Hz and at ETU
+# 300 Hz (3GPP TS 36.104 Annex B.2), where mmse_full's time prior takes rank
+# 15 and 19 and its system n = 135 and 171 the HPD cluster kernel: name →
+# (receive antennas, symbols, carrier, Doppler Hz, batch, estimator pairs).
 ENVELOPE_CONFIGS = {
-    "nr100_4x4": (4, 14, "nr100", 64, (("ls", "linear"), ("ls", "cubic"), ("mmse", "linear"),
-                                       ("mmse_full", "linear"))),
-    "nr100_4x64": (64, 14, "nr100", 16, (("ls", "linear"), ("ls", "cubic"),
-                                         ("mmse_full", "linear"))),
-    "lte_frame_4x4": (4, 140, "bench", 32, (("ls", "linear"), ("ls", "cubic"),
-                                            ("mmse_full", "linear"))),
+    "nr100_4x4": (4, 14, "nr100", 200.0, 64, (("ls", "linear"), ("ls", "cubic"),
+                                              ("mmse", "linear"), ("mmse_full", "linear"))),
+    "nr100_4x64": (64, 14, "nr100", 200.0, 16, (("ls", "linear"), ("ls", "cubic"),
+                                                ("mmse_full", "linear"))),
+    "lte_frame_4x4": (4, 140, "bench", 200.0, 32, (("ls", "linear"), ("ls", "cubic"),
+                                                   ("mmse_full", "linear"))),
+    "lte_frame_etu300_4x4": (4, 140, "bench", 300.0, 32, (("ls", "linear"), ("ls", "cubic"),
+                                                          ("mmse_full", "linear"))),
 }
 ENVELOPE_ANCHOR_DB = 10.0 * math.log10(3.0 / 4.0)  # mmse_full's 4-TX floor, −1.249 dB
 ENVELOPE_CPU_FRAMES = 2  # card against CPU, and each against float64, on the first frames
 ENVELOPE_FLOAT64_BOUND = 1e-6  # mmse_full against its float64 run, max error over the rms
 ENVELOPE_HPD_CASES = ("r9", "r16", "r64", "r64_n128", "not_pd_r16", "n129", "n160_r64",
-                      "n300_r9", "not_pd_n140", "nan_entry_n150", "last_pivot_n200")
+                      "n300_r9", "not_pd_n140", "nan_entry_n150", "last_pivot_n200", "n135_r4",
+                      "n171_r4", "n243_r4", "n400_r4")
+# The HPD solve past n = 128 timed route by route (phase 19) on the systems
+# of the two LTE-frame configurations (n = 135, 171) and on random systems
+# of mmse_full's size over one LTE radio frame at 500 Hz (time rank 27,
+# n = 243) and at n = 300.
+ENVELOPE_HPD_SHAPES = ((32, 243, 4), (32, 300, 4))
 
 
 def quiet(*_):
@@ -2857,18 +2871,19 @@ def measuring_phase(dev, card, rates):
     return launches
 
 
-def envelope_config(num_rx, num_symbols, carrier):
+def envelope_config(num_rx, num_symbols, carrier, doppler):
     """A configuration of ENVELOPE_CONFIGS: 4 TX and ``num_rx`` RX antennas,
     ``num_symbols`` symbols, on the 100 MHz NR carrier or at the bench
-    numerology (FFT 1024, 15 kHz, K = 599)."""
+    numerology (FFT 1024, 15 kHz, K = 599), ``doppler`` Hz the largest
+    Doppler configured (mmse_full's time rank follows it)."""
     from ce5g_torch import ChannelConfig, ExperimentConfig, MIMOConfig, OFDMConfig
 
     if carrier == "nr100":
         ofdm = OFDMConfig(fft_size=4096, cp_length=288, num_symbols=num_symbols,
                           useful_subcarriers=3276, subcarrier_spacing=30000.0)
-        channel = ChannelConfig(carrier_freq=3.5e9)
+        channel = ChannelConfig(carrier_freq=3.5e9, doppler_hz=(doppler,))
     else:
-        ofdm, channel = OFDMConfig(num_symbols=num_symbols), ChannelConfig()
+        ofdm, channel = OFDMConfig(num_symbols=num_symbols), ChannelConfig(doppler_hz=(doppler,))
     return ExperimentConfig(ofdm=ofdm, channel=channel,
                             mimo=MIMOConfig(num_tx=4, num_rx=num_rx))
 
@@ -2960,17 +2975,75 @@ def envelope_hard_cases(dev):
         ref = hpd_mod.hpd_solve_plain(gram, rhs)
         is_bad = torch.zeros(gram.shape[0], dtype=torch.bool, device=dev)
         is_bad[list(bad)] = True
-        fail_unless(bool(torch.isnan(x[is_bad]).all()) and bool(torch.isfinite(x[~is_bad]).all()),
-                    f"hpd_solve on hard case {case}: NaN exactly for the systems not positive definite")
-        err = rel(x[~is_bad], ref[~is_bad])
-        fail_unless(err < 1e-4, f"hpd_solve on hard case {case}: relative error {err:.2e} < 1e-4")
-        worst["hpd_solve"] = max(worst["hpd_solve"], err)
+        n, r = rhs.shape[1:]
+        outs = {"plan": x}
+        outs.update({f"cluster {c}": hpd_mod._launch(hpd_mod._plan(n, r, c), gram, rhs)
+                     for c in hpd_mod.CLUSTER_SIZES
+                     if n > hpd_mod.MAX_N and hpd_mod._instance(n, r, c) is not None})
+        for route, x in outs.items():
+            fail_unless(bool(torch.isnan(x[is_bad]).all()) and bool(torch.isfinite(x[~is_bad]).all()),
+                        f"hpd_solve {route} on hard case {case}: NaN exactly for the systems "
+                        f"not positive definite")
+            err = rel(x[~is_bad], ref[~is_bad])
+            fail_unless(err < 1e-4, f"hpd_solve {route} on hard case {case}: relative error "
+                                    f"{err:.2e} < 1e-4")
+            worst["hpd_solve"] = max(worst["hpd_solve"], err)
     print(f"  hard cases, every route against the plain version: interp_fused "
           f"({', '.join(hard_cases.GRID_CASES)}; R = {', '.join(map(str, hard_cases.WIDE_R))}) "
           f"worst {worst['interp_fused']:.3e} of scale; interp ({', '.join(hard_cases.SLOT_CASES)}; "
           f"R = 4, {', '.join(map(str, hard_cases.WIDE_R))}) worst {worst['interp']:.3e} of scale; "
-          f"hpd_solve ({', '.join(ENVELOPE_HPD_CASES)}) worst relative error "
+          f"hpd_solve ({', '.join(ENVELOPE_HPD_CASES)}; past n = 128 every cluster size with an "
+          f"instance) worst relative error "
           f"{worst['hpd_solve']:.3e}, NaN pattern equal")
+
+
+def hpd_cluster_times(problems):
+    """The HPD solve on each {label: (gram, rhs)} of ``problems`` (n > 128):
+    the plan's route, every other cluster size with an instance (one block
+    where it has one), the blocked kernel the cluster route replaced, the
+    plain version, torch.linalg.solve and the bound (kernels: a graph of
+    20, median of 5 replays; plain and library back to back). Each kernel
+    is held to the plain version first, and the plan's route may be no
+    slower than the blocked kernel."""
+    import torch
+    from ce5g_torch.ops import hpd_solve as hpd_mod
+
+    for what, (gram, rhs) in problems.items():
+        b, n, r = rhs.shape
+        ref = hpd_mod.hpd_solve_plain(gram, rhs)
+        chosen = hpd_mod.plan(n, r)
+        plans = {f"cluster {c}": hpd_mod._plan(n, r, c) for c in hpd_mod.CLUSTER_SIZES
+                 if hpd_mod._instance(n, r, c) is not None}
+        plans["blocked"] = hpd_mod.Plan("blocked")
+        times, parts = {}, []
+        for label, pl in plans.items():
+            err = rel(hpd_mod._launch(pl, gram, rhs), ref)
+            fail_unless(err < 1e-4, f"hpd_solve {label} at {(b, n, r)}: relative error "
+                                    f"{err:.2e} < 1e-4")
+            ms = graph_ms(lambda: hpd_mod._launch(pl, gram, rhs))
+            times[label] = ms[0]
+            mark = " (plan)" if pl == chosen else ""
+            parts.append(f"{label}{mark} {ms[0]:.4f} ({ms[1]:.4f}-{ms[2]:.4f}) err {err:.1e}")
+        times["plain"] = cuda_ms(lambda: hpd_mod.hpd_solve_plain(gram, rhs))[0]
+        times["library"] = cuda_ms(lambda: torch.linalg.solve(gram, rhs))[0]
+        bound_ms, bound_by = bound(*hpd_mod.work(b, n, r))
+        print(f"  hpd_solve on {what} {(b, n, n)} x {r}, ms: " + "; ".join(parts)
+              + f"; plain {times['plain']:.4f}; library (torch.linalg.solve) "
+              f"{times['library']:.4f}; bound {bound_ms:.4f} ({bound_by})")
+        planned = next(label for label, pl in plans.items() if pl == chosen)
+        fail_unless(times[planned] <= times["blocked"],
+                    f"hpd_solve at {(b, n, r)}: the plan's {planned} no slower than the blocked "
+                    f"kernel it replaced")
+
+
+def hpd_random_times(dev, shapes=ENVELOPE_HPD_SHAPES):
+    """hpd_cluster_times on phase 1's random systems at each (B, n, R) of
+    ``shapes``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    hpd_cluster_times({f"random systems n = {n}": hpd_problem(gen, dev, b, n, r)
+                       for b, n, r in shapes})
 
 
 def route_times(main_args, parity_args):
@@ -3019,11 +3092,11 @@ def envelope_phase(dev, card, main_args, parity_args):
 
     t_phase = time.perf_counter()
     total = dict.fromkeys(read_launches(), 0)
-    for name, (num_rx, num_symbols, carrier, b, pairs) in ENVELOPE_CONFIGS.items():
-        cfg = envelope_config(num_rx, num_symbols, carrier)
+    for name, (num_rx, num_symbols, carrier, doppler, b, pairs) in ENVELOPE_CONFIGS.items():
+        cfg = envelope_config(num_rx, num_symbols, carrier, doppler)
         params = FrameParams(
             torch.full((b,), PROFILE_INDEX["ETU"], dtype=torch.int32, device=dev),
-            torch.full((b,), 200.0, device=dev),
+            torch.full((b,), doppler, device=dev),
             torch.full((b,), 10.0, device=dev),
             torch.full((b,), 0.1, device=dev),
         )
@@ -3046,7 +3119,8 @@ def envelope_phase(dev, card, main_args, parity_args):
         fail_unless(all(n > 0 for n in launches.values()),
                     f"{name}: every kernel launched on the envelope path: {launches}")
         k = cfg.ofdm.num_used_subcarriers
-        print(f"{name} (4x{num_rx}, {num_symbols} x {k}, ETU 200 Hz 10 dB 10% pilots, {b} frames): "
+        print(f"{name} (4x{num_rx}, {num_symbols} x {k}, ETU {doppler:.0f} Hz 10 dB 10% pilots, "
+              f"{b} frames): "
               f"NMSE dB " + ", ".join(f"{est} {db:.4f}" for est, (_, db) in out.items())
               + f"; launches " + ", ".join(f"{kn} {v}" for kn, v in launches.items())
               + f"; peak memory {peak_gib:.2f} GiB")
@@ -3073,9 +3147,11 @@ def envelope_phase(dev, card, main_args, parity_args):
             bound_ms, bound_by = bound(*work)
             print(f"  {kn}: kernel {ms:.4f} ms ({ms_min:.4f}-{ms_max:.4f} over 5 replays of a graph "
                   f"of 20), bound {bound_ms:.4f} ms ({bound_by}) at {shape}")
-        if name == "lte_frame_4x4":
-            fail_unless(hpd_mod.plan(*rhs.shape[1:]).route == "blocked",
-                        f"{name}: mmse_full's system {tuple(gram.shape)} takes the blocked kernel")
+        if gram.shape[-1] > hpd_mod.MAX_N:
+            fail_unless(hpd_mod.plan(*rhs.shape[1:]).route == "cluster",
+                        f"{name}: mmse_full's system {tuple(gram.shape)} takes the cluster kernel")
+            hpd_cluster_times({f"{name}'s": (gram, rhs)})
+        else:
             plain_ms = cuda_ms(lambda: hpd_mod.hpd_solve_plain(gram, rhs))[0]
             library_ms = cuda_ms(lambda: torch.linalg.solve(gram, rhs))[0]
             print(f"  hpd_solve at {tuple(gram.shape)}: plain {plain_ms:.4f} ms, library "
@@ -3083,6 +3159,7 @@ def envelope_phase(dev, card, main_args, parity_args):
         for kn, v in launches.items():
             total[kn] += v
     envelope_hard_cases(dev)
+    hpd_random_times(dev)
     route_times(main_args, parity_args)
     print(f"  card: {card}")
     print(f"phase 19 wall time: {time.perf_counter() - t_phase:.1f} s")

@@ -13,8 +13,9 @@ its plain version, so these tests hold:
   pass its plan is split into passes that each fit;
 * the plain versions against the JAX package on the new hard cases
   (interpolation within 1e-5 absolute, the JAX package's XLA branch);
-* the whole slice at the two envelope configurations (4×12 at 14 × 599;
-  4×4 on the NR carrier): ``ls`` and ``ls:cubic`` within 1e-5 of the JAX
+* the whole slice at the three envelope configurations (4×12 at 14 × 599;
+  4×4 on the NR carrier; 4×4 ETU 300 Hz over one LTE radio frame of 140
+  symbols, where mmse_full solves n = 171): ``ls`` and ``ls:cubic`` within 1e-5 of the JAX
   package's rms, ``mmse_full`` within 1e-5 of the rms of the port's own
   float64 run, every NMSE within 0.01 dB of the JAX package's.
 
@@ -71,18 +72,93 @@ def test_plans_fit_and_cover(r, s, k):
         else:  # the union of a tile's windows
             assert slot.cap >= min(p, s * (slot.tile - 1) + min(CANDIDATES, p))
             assert 2 * slot.smem <= MAX_SMEM
-    for n in (1, 45, 75, 126, 128, 129, 135, 300):
+    for n in (1, 45, 75, 126, 128, 129, 135, 160, 171, 243, 300, 376, 384, 400):
         hpd = hpd_mod.plan(n, r)
-        assert hpd.route == ("registers" if n <= hpd_mod.MAX_N else "blocked")
+        if n <= hpd_mod.MAX_N:
+            assert hpd.route == "registers"
+        else:  # a cluster of 8 holds n + R ≤ 384 (R ≤ 8 riding)
+            assert hpd.route == ("cluster" if n + min(r, hpd_mod.RIDE_R) <= CLUSTER_ROWS
+                                 else "blocked")
+        if hpd.route == "cluster":
+            _cluster_plan_holds(hpd, n, r)
+            continue
         assert hpd.smem <= (MAX_SMEM if hpd.route == "registers" else DEFAULT_SMEM)
         _covered_once([(0, hpd.ride)] + [(c, 1) for cols in hpd.columns for c in cols], r)
+
+
+CLUSTER_ROWS = 384  # the trapezoid rows, n + R, that a cluster of 8 holds in registers
+CLUSTER_ELEMENTS = 56  # the most elements of the trapezoid a thread holds
+
+
+def _elements(blocks, na, nb):
+    """Elements a thread of the cluster kernel holds: (a, b) for b < C·(a + 1)."""
+    return sum(min(blocks * (a + 1), nb) for a in range(na))
+
+
+def _cluster_plan_holds(pl, n, r):
+    """A 'cluster' plan fits a block's shared memory, its instance exists and
+    holds every row of the trapezoid, the grid is a whole number of
+    clusters, each row of the factor is kept by exactly one block for the
+    backward substitution, each row of the elimination is owned by
+    exactly one thread of the cluster, and the chunks cover R once."""
+    blocks, na, nb = pl.instance
+    assert pl.blocks == blocks in hpd_mod.CLUSTER_SIZES and pl.instance in hpd_mod.CLUSTER_INSTANCES
+    assert pl.smem <= MAX_SMEM
+    assert _elements(blocks, na, nb) <= CLUSTER_ELEMENTS
+    assert 16 * nb >= n and 16 * blocks * na >= n + pl.ride
+    for b in (1, 32, 37):
+        grid = pl.grid(b)
+        assert grid[0] % blocks == 0 and grid[0] // blocks == b and grid[1] == pl.chunks
+    assert len(pl.rows) == blocks
+    _covered_once(pl.rows, n)
+    owners = [q + blocks * ri + 16 * blocks * a for q in range(blocks) for ri in range(16)
+              for a in range(na)]
+    _covered_once([(i, 1) for i in owners if i < n + pl.ride], n + pl.ride)
+    _covered_once([(hpd_mod.RIDE_R * k, min(hpd_mod.RIDE_R, r - hpd_mod.RIDE_R * k))
+                   for k in range(pl.chunks)], r)
+    assert pl.ride == min(r, hpd_mod.RIDE_R)
+
+
+@pytest.mark.parametrize("r", (1, 4, 8, 9, 16, 64))
+@pytest.mark.parametrize("n", (129, 135, 144, 160, 171, 192, 224, 243, 256, 300))
+def test_hpd_cluster_plans(n, r):
+    """Every cluster size with an instance for (n, R) gives a plan that
+    holds; plan() picks one of them."""
+    held = []
+    for blocks in hpd_mod.CLUSTER_SIZES:
+        try:
+            pl = hpd_mod._plan(n, r, blocks)
+        except ValueError:
+            continue
+        _cluster_plan_holds(pl, n, r)
+        held.append(pl)
+    assert hpd_mod.plan(n, r) in held
+
+
+def test_hpd_cluster_instances_match_the_source():
+    """The instances compiled in csrc/hpd_solve.cu are the ones plan()
+    knows, in its order, each within a thread's registers and a block's
+    shared memory at the largest system it takes, its column buffer
+    holding every column index it reads."""
+    import re
+    from pathlib import Path
+
+    src = (Path(hpd_mod.__file__).parent.parent / "csrc" / "hpd_solve.cu").read_text()
+    macro = src[src.index("#define HPD_CLUSTER_INSTANCES(X)"):].split("\n\n")[0]
+    listed = tuple(tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro))
+    assert listed == hpd_mod.CLUSTER_INSTANCES
+    for blocks, na, nb in listed:
+        assert _elements(blocks, na, nb) <= CLUSTER_ELEMENTS and blocks * na >= nb
+        n = min(16 * nb, 16 * blocks * na - 1)
+        assert hpd_mod._plan(n, 1, blocks).smem <= MAX_SMEM
 
 
 def test_routes_by_shape():
     """The main path's shapes take the grid form's 'shared' route and the
     slot form's 'frame' route; more antennas, or a frame too large for a
     block, take the slot form's 'tile' route; mmse_full over 140 symbols
-    at 200 Hz (time rank 15, n = 135) takes the blocked HPD kernel."""
+    at 200 and 300 Hz (time rank 15 and 19, n = 135 and 171) takes the
+    HPD cluster kernel, a system past its instances the blocked one."""
     assert grid_mod.plan(4, 14, 599).route == "shared"
     assert grid_mod.plan(8, 127, 599).route == "shared"
     assert slot_mod.plan(4, 2096, 14, 599).route == "frame"
@@ -90,7 +166,9 @@ def test_routes_by_shape():
     assert slot_mod.plan(9, 2096, 14, 599).route == "tile"
     assert slot_mod.plan(4, 6878, 14, hard_cases.NR_K).route == "tile"
     assert hpd_mod.plan(45, 4).route == "registers"
-    assert hpd_mod.plan(9 * 15, 4).route == "blocked"
+    assert hpd_mod.plan(9 * 15, 4).route == "cluster"
+    assert hpd_mod.plan(9 * 19, 4).route == "cluster"
+    assert hpd_mod.plan(400, 4).route == "blocked"
     with pytest.raises(ValueError, match="S² \\+ K²"):
         slot_mod.plan(4, 100, 14, 5000)
 
@@ -237,12 +315,27 @@ def _nr_carrier(jcfg):
     )
 
 
+def _lte_frame_etu300(jcfg):
+    """One LTE radio frame (10 subframes of 14 symbols) at the default
+    numerology, 4×4, ETU at 300 Hz (3GPP TS 36.104 Annex B.2): mmse_full's
+    time rank 19, an n = 171 system."""
+    from ce5g_tpu import MIMOConfig
+
+    return dataclasses.replace(
+        jcfg,
+        ofdm=dataclasses.replace(jcfg.ofdm, num_symbols=140),
+        channel=dataclasses.replace(jcfg.channel, doppler_hz=(300.0,)),
+        mimo=MIMOConfig(num_tx=4, num_rx=4),
+    )
+
+
 #: name → (the JAX config from the default one, frames: profile, Doppler, SNR, density)
 CONFIGS = {
     "4x12_599": (lambda c: dataclasses.replace(
         c, mimo=dataclasses.replace(c.mimo, num_tx=4, num_rx=12)),
         ([2, 1], [200.0, 50.0], [10.0, 20.0], [0.10, 0.05])),
     "nr100_4x4": (_nr_carrier, ([2], [200.0], [10.0], [0.10])),
+    "lte_frame_etu300_4x4": (_lte_frame_etu300, ([2], [300.0], [10.0], [0.10])),
 }
 ESTIMATORS = (("ls", "linear"), ("ls", "cubic"), ("mmse_full", "linear"))
 
@@ -368,19 +461,44 @@ def test_slot_kernel_envelope_matches_plain(card, case, route):
             assert bool((out[valid.sum(-1) == 0] == 0).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ("r9", "r16", "r64", "r64_n128", "not_pd_r16", "n129",
-                                  "n160_r64", "n300_r9", "not_pd_n140", "nan_entry_n150",
-                                  "last_pivot_n200"))
-def test_hpd_kernel_envelope_matches_plain(card, case):
-    gram, rhs, bad = hard_cases.hpd_case(case)
-    g, h = gram.to(card), rhs.to(card)
-    before = hpd_mod.launches
-    x = hpd_mod.hpd_solve(g, h).cpu()
-    assert hpd_mod.launches == before + 1
-    ref = hpd_mod.hpd_solve_plain(g, h).cpu()
-    is_bad = torch.zeros(gram.shape[0], dtype=torch.bool)
+#: the HPD hard cases past the register kernel's R or n
+HPD_ENVELOPE_CASES = ("r9", "r16", "r64", "r64_n128", "not_pd_r16", "n129", "n160_r64",
+                      "n300_r9", "not_pd_n140", "nan_entry_n150", "last_pivot_n200", "n135_r4",
+                      "n171_r4", "n243_r4", "n400_r4")
+
+
+def _hpd_holds(x, ref, bad):
+    """NaN exactly for the systems in ``bad``, the others within 1e-4
+    relative of the plain version."""
+    x, ref = x.cpu(), ref.cpu()
+    is_bad = torch.zeros(x.shape[0], dtype=torch.bool)
     is_bad[list(bad)] = True
     assert bool(torch.isnan(x[is_bad]).all()) and bool(torch.isfinite(x[~is_bad]).all())
     err = float(torch.linalg.norm(x[~is_bad] - ref[~is_bad]) / torch.linalg.norm(ref[~is_bad]))
     assert err < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HPD_ENVELOPE_CASES)
+def test_hpd_kernel_envelope_matches_plain(card, case):
+    gram, rhs, bad = hard_cases.hpd_case(case)
+    g, h = gram.to(card), rhs.to(card)
+    before = hpd_mod.launches
+    x = hpd_mod.hpd_solve(g, h)
+    assert hpd_mod.launches == before + 1
+    _hpd_holds(x, hpd_mod.hpd_solve_plain(g, h), bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in hard_cases.HPD_CASES
+                                  if hard_cases.HPD_SHAPES[c][1] > hpd_mod.MAX_N])
+def test_hpd_kernel_cluster_sizes_match_plain(card, case):
+    """Every cluster size with an instance for the case, forced through
+    the private ``_launch``."""
+    gram, rhs, bad = hard_cases.hpd_case(case)
+    g, h = gram.to(card), rhs.to(card)
+    ref = hpd_mod.hpd_solve_plain(g, h)
+    n, r = rhs.shape[1:]
+    for blocks in hpd_mod.CLUSTER_SIZES:
+        if hpd_mod._instance(n, r, blocks) is not None:
+            _hpd_holds(hpd_mod._launch(hpd_mod._plan(n, r, blocks), g, h), ref, bad)

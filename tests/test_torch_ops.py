@@ -86,10 +86,10 @@ def test_hpd_solve_hard_cases_match_jax(case):
 def test_hpd_limits_and_work():
     """The wrapper's shape rules hold before any launch: any R (eight ride
     the elimination, the rest are solved by warps against its factor), and
-    n above MAX_N takes the blocked kernel, a launch all the same."""
+    n above MAX_N takes the cluster kernel, a launch all the same."""
     assert (hpd_mod.MAX_N, hpd_mod.RIDE_R) == (128, 8)
     assert hpd_mod.plan(128, 1000).route == "registers"
-    assert hpd_mod.plan(129, 1).route == "blocked"
+    assert hpd_mod.plan(129, 1).route == "cluster"
     gram, rhs, _ = hard_cases.hpd_case("n9")
     with pytest.raises(ValueError, match="expected gram"):
         hpd_mod.hpd_solve(gram, rhs[:, :-1])

@@ -15,6 +15,7 @@ from ..config import ExperimentConfig
 from ..device import resolve_device
 from ..physics.profiles import ProfileTable, cached
 from ..physics.simulate import Frame, FrameParams, table_for, table_tensors
+from ..utils.profiling import annotate, counters
 from .blind import device_tables_for, estimate_priors
 from .ls import ls_estimate
 from .mmse import build_f_tables, mmse_diag_estimate, mmse_full_estimate
@@ -42,7 +43,9 @@ def auto_time_rank(cfg: ExperimentConfig) -> Optional[int]:
     m whose projection reconstructs the worst-case (largest configured
     Doppler) R_t within 1e-5 relative Frobenius error — m = 5 for
     fd ≤ 200 Hz and m = 8 for fd ≤ 500 Hz at the default numerology.
-    None (full rank) when no m < S reaches the tolerance."""
+    None (full rank) when no m < S reaches the tolerance. Each call counts
+    ``time_rank.computed`` (``utils.profiling``)."""
+    counters["time_rank.computed"] += 1
     s = cfg.ofdm.num_symbols
     fd_max = max(cfg.channel.doppler_hz)
     ds = np.arange(s, dtype=np.float64)
@@ -92,67 +95,72 @@ def estimate_batch(
 
     Returns:
         (B, S, R, T, K) complex64 channel estimate.
-    """
-    dev = resolve_device(device)
-    frames = _to_device(frames, dev)
-    if table is None:
-        table = table_for(cfg)
-    num_tx = cfg.mimo.num_tx
-    grid_shape = (cfg.ofdm.num_symbols, cfg.ofdm.num_used_subcarriers)
-    tx_grid = frames.tx_symbols[:, :, 0, :]  # common grid (reference parity)
-    slots = (frames.pilot_positions, frames.pilot_valid, grid_shape, num_tx)
 
-    if estimator == "ls":
-        return ls_estimate(frames.rx_symbols, tx_grid, *slots, method,
-                           pilot_mask=frames.pilot_mask)
-    if estimator == "mmse":
-        return mmse_diag_estimate(frames.rx_symbols, tx_grid, *slots, frames.params.snr_db,
-                                  method, pilot_mask=frames.pilot_mask)
-    rank = auto_time_rank(cfg) if time_rank == "auto" else time_rank
-    if estimator == "mmse_full_est":
-        # The deployable estimator: the delay prior is the union dictionary
-        # with per-frame blended tap powers (never zeroing a candidate tap),
-        # and σ̂² enters through the snr_db ↔ p_ch mapping, so mmse_full
-        # reproduces the estimated noise variance exactly.
-        tables = device_tables_for(cfg, table, dev)
-        pri = estimate_priors(frames.rx_symbols, tx_grid, frames.pilot_mask, tables, num_tx)
-        amp = torch.sqrt(2.0 * pri.w_tap)  # mmse_full folds w = ½·amp²
-        p_ch = pri.w_tap.sum(-1)
-        snr_db = 10.0 * torch.log10((num_tx * p_ch / pri.sigma2).clamp(min=1e-12))
-        b = amp.shape[0]
-        return mmse_full_estimate(
-            frames.rx_symbols,
-            tx_grid,
-            frames.pilot_mask,
-            num_tx,
-            snr_db,
-            tables.f_dict.expand(b, *tables.f_dict.shape),
-            amp,
-            pri.doppler_hz,
-            cfg.ofdm.symbol_duration,
-            time_rank=rank,
-        )
-    if estimator == "mmse_full":
-        amp_t, f_t = table_tensors(table, cfg, dev)
-        f_tables = cached(
-            table, ("f_tables", str(dev)), lambda: build_f_tables(table.freq_response, dev)
-        )
-        pidx = frames.params.profile_idx.long()
-        return mmse_full_estimate(
-            frames.rx_symbols,
-            tx_grid,
-            frames.pilot_mask,
-            num_tx,
-            frames.params.snr_db,
-            f_t[pidx],
-            amp_t[pidx],
-            frames.params.doppler_hz,
-            cfg.ofdm.symbol_duration,
-            time_rank=rank,
-            f_tables=f_tables,
-            profile_idx=pidx,
-        )
-    raise ValueError(f"Unknown estimator: {estimator!r}")
+    Runs in the span ``estimators.estimate``; ``mmse_full.rank`` holds the
+    time rank's sizing.
+    """
+    with annotate("estimators.estimate"):
+        dev = resolve_device(device)
+        frames = _to_device(frames, dev)
+        if table is None:
+            table = table_for(cfg)
+        num_tx = cfg.mimo.num_tx
+        grid_shape = (cfg.ofdm.num_symbols, cfg.ofdm.num_used_subcarriers)
+        tx_grid = frames.tx_symbols[:, :, 0, :]  # common grid (reference parity)
+        slots = (frames.pilot_positions, frames.pilot_valid, grid_shape, num_tx)
+
+        if estimator == "ls":
+            return ls_estimate(frames.rx_symbols, tx_grid, *slots, method,
+                               pilot_mask=frames.pilot_mask)
+        if estimator == "mmse":
+            return mmse_diag_estimate(frames.rx_symbols, tx_grid, *slots, frames.params.snr_db,
+                                      method, pilot_mask=frames.pilot_mask)
+        with annotate("mmse_full.rank"):
+            rank = auto_time_rank(cfg) if time_rank == "auto" else time_rank
+        if estimator == "mmse_full_est":
+            # The deployable estimator: the delay prior is the union dictionary
+            # with per-frame blended tap powers (never zeroing a candidate tap),
+            # and σ̂² enters through the snr_db ↔ p_ch mapping, so mmse_full
+            # reproduces the estimated noise variance exactly.
+            tables = device_tables_for(cfg, table, dev)
+            pri = estimate_priors(frames.rx_symbols, tx_grid, frames.pilot_mask, tables, num_tx)
+            amp = torch.sqrt(2.0 * pri.w_tap)  # mmse_full folds w = ½·amp²
+            p_ch = pri.w_tap.sum(-1)
+            snr_db = 10.0 * torch.log10((num_tx * p_ch / pri.sigma2).clamp(min=1e-12))
+            b = amp.shape[0]
+            return mmse_full_estimate(
+                frames.rx_symbols,
+                tx_grid,
+                frames.pilot_mask,
+                num_tx,
+                snr_db,
+                tables.f_dict.expand(b, *tables.f_dict.shape),
+                amp,
+                pri.doppler_hz,
+                cfg.ofdm.symbol_duration,
+                time_rank=rank,
+            )
+        if estimator == "mmse_full":
+            amp_t, f_t = table_tensors(table, cfg, dev)
+            f_tables = cached(
+                table, ("f_tables", str(dev)), lambda: build_f_tables(table.freq_response, dev)
+            )
+            pidx = frames.params.profile_idx.long()
+            return mmse_full_estimate(
+                frames.rx_symbols,
+                tx_grid,
+                frames.pilot_mask,
+                num_tx,
+                frames.params.snr_db,
+                f_t[pidx],
+                amp_t[pidx],
+                frames.params.doppler_hz,
+                cfg.ofdm.symbol_duration,
+                time_rank=rank,
+                f_tables=f_tables,
+                profile_idx=pidx,
+            )
+        raise ValueError(f"Unknown estimator: {estimator!r}")
 
 
 def estimate_frame(frame: Frame, **kwargs) -> torch.Tensor:

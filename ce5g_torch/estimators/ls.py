@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .interpolate import interpolate, interpolate_grid
 
 _EPS = 1e-12
@@ -60,13 +61,20 @@ def ls_estimate(rx_symbols, tx_grid, positions, valid, grid_shape: Tuple[int, in
 
     Returns:
         (B, S, R, T, K) complex64 — identical along T (reference behaviour).
+
+    Spans (``utils.profiling``): ``ls.pilots`` (the LS values), then
+    ``ls.interpolate``.
     """
     if pilot_mask is not None and method in ("nearest", "linear"):
-        g = masked_ls_grid(rx_symbols, tx_grid, pilot_mask)
-        h_full = interpolate_grid(g, pilot_mask, method)
+        with annotate("ls.pilots"):
+            g = masked_ls_grid(rx_symbols, tx_grid, pilot_mask)
+        with annotate("ls.interpolate"):
+            h_full = interpolate_grid(g, pilot_mask, method)
     else:
-        h_p = ls_at_pilots(rx_symbols.transpose(1, 2), tx_grid, positions, valid)
-        h_full = interpolate(h_p, positions, valid, grid_shape, method)
+        with annotate("ls.pilots"):
+            h_p = ls_at_pilots(rx_symbols.transpose(1, 2), tx_grid, positions, valid)
+        with annotate("ls.interpolate"):
+            h_full = interpolate(h_p, positions, valid, grid_shape, method)
     h_full = h_full.transpose(1, 2)  # (B, S, R, K)
     b, s, r, k = h_full.shape
     return h_full[:, :, :, None, :].expand(b, s, r, num_tx, k)

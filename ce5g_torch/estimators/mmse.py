@@ -52,6 +52,7 @@ import torch
 
 from ..ops.hpd_solve import hpd_solve
 from ..utils.complexify import packed_complex_matmul
+from ..utils.profiling import annotate
 from .interpolate import interpolate, interpolate_grid
 from .ls import ls_at_pilots, masked_ls_grid
 
@@ -319,13 +320,19 @@ def mmse_full_estimate(
         inputs; complex128 inputs (with float64 ``amp`` and complex128
         ``freq_matrix``, ``f_tables=None``) run the same path in float64,
         the reference that the card's float32 result is held to.
+
+    Spans (``utils.profiling``): ``mmse_full.ls_grid``, ``.time_prior``
+    (J0, the Legendre basis, the Cholesky), ``.gram`` (E, D, gram, σ²,
+    Lᴴe), ``.solve`` (the two HPD solves and the float64 residual),
+    ``.reconstruct``.
     """
     dev = rx_symbols.device
     out = rx_symbols.dtype  # of the HPD solve and the estimate
     real, wide = torch.float64, torch.complex128  # of the Woodbury system
-    m = pilot_mask.to(real)  # (B, S, K)
-    b, s, k = m.shape
-    g = masked_ls_grid(rx_symbols, tx_grid, m).to(wide)  # (B, R, S, K)
+    with annotate("mmse_full.ls_grid"):
+        m = pilot_mask.to(real)  # (B, S, K)
+        b, s, k = m.shape
+        g = masked_ls_grid(rx_symbols, tx_grid, m).to(wide)  # (B, R, S, K)
     r_rx = g.shape[1]
 
     n_paths = amp.shape[-1]
@@ -336,66 +343,71 @@ def mmse_full_estimate(
     # Time prior factor V with V·Vᵀ ≈ R_t = J0(2π fd Δs T_sym), ridge scaled
     # to the trace as the JAX package's (which keeps it positive definite in
     # float32).
-    fd = torch.as_tensor(doppler_hz, dtype=real, device=dev)
-    ds = torch.arange(s, dtype=real, device=dev)
-    rt = bessel_j0(
-        (2.0 * math.pi * fd)[:, None, None] * (ds[:, None] - ds[None, :]) * symbol_duration
-    )  # (B, S, S)
-    if time_rank is not None and time_rank < s:
-        q = _legendre_basis(s, time_rank, dev).to(real)  # (S, m) static
-        bm = q.T @ (rt @ q)  # (B, m, m)
-        ridge = 1e-4 * (bm.diagonal(dim1=-2, dim2=-1).sum(-1) / time_rank) + 1e-6
-        eye = torch.eye(time_rank, dtype=real, device=dev)
-        chol_b = torch.linalg.cholesky(bm + ridge[:, None, None] * eye)
-        v = q @ chol_b  # (B, S, m)
-    else:
-        ridge = 1e-4 * (rt.diagonal(dim1=-2, dim2=-1).sum(-1) / s) + 1e-6
-        v = torch.linalg.cholesky(rt + ridge[:, None, None] * torch.eye(s, dtype=real, device=dev))
+    with annotate("mmse_full.time_prior"):
+        fd = torch.as_tensor(doppler_hz, dtype=real, device=dev)
+        ds = torch.arange(s, dtype=real, device=dev)
+        rt = bessel_j0(
+            (2.0 * math.pi * fd)[:, None, None] * (ds[:, None] - ds[None, :]) * symbol_duration
+        )  # (B, S, S)
+        if time_rank is not None and time_rank < s:
+            q = _legendre_basis(s, time_rank, dev).to(real)  # (S, m) static
+            bm = q.T @ (rt @ q)  # (B, m, m)
+            ridge = 1e-4 * (bm.diagonal(dim1=-2, dim2=-1).sum(-1) / time_rank) + 1e-6
+            eye = torch.eye(time_rank, dtype=real, device=dev)
+            chol_b = torch.linalg.cholesky(bm + ridge[:, None, None] * eye)
+            v = q @ chol_b  # (B, S, m)
+        else:
+            ridge = 1e-4 * (rt.diagonal(dim1=-2, dim2=-1).sum(-1) / s) + 1e-6
+            v = torch.linalg.cholesky(
+                rt + ridge[:, None, None] * torch.eye(s, dtype=real, device=dev))
 
-    f = freq_matrix.to(wide)  # (B, P, K)
-    if f_tables is not None and profile_idx is not None:
-        pidx = torch.as_tensor(profile_idx, device=dev).long()
-        rows = torch.arange(b, device=dev)
-        c_num, p_num = f_tables.num_profiles, f_tables.num_paths
-        g2 = torch.cat([g.real, g.imag], dim=-1)  # (B, R, S, 2K)
-        e_all = _split_complex(g2 @ f_tables.w_e).reshape(b, r_rx, s, c_num, p_num)
-        e = e_all.permute(0, 3, 1, 2, 4)[rows, pidx]  # (B, R, S, P)
-        d_all = _split_complex(m @ f_tables.w_d).reshape(b, s, c_num, p_num, p_num)
-        d = d_all.permute(0, 2, 1, 3, 4)[rows, pidx]  # (B, S, P, P)
-    else:
-        fc = f.conj()
-        e = torch.einsum("brsk,bpk->brsp", g, fc)
-        a = fc[:, :, None, :] * f[:, None, :, :]  # (B, P, P, K)
-        d = torch.einsum("bsk,bpqk->bspq", m.to(g.dtype), a)
+    with annotate("mmse_full.gram"):
+        f = freq_matrix.to(wide)  # (B, P, K)
+        if f_tables is not None and profile_idx is not None:
+            pidx = torch.as_tensor(profile_idx, device=dev).long()
+            rows = torch.arange(b, device=dev)
+            c_num, p_num = f_tables.num_profiles, f_tables.num_paths
+            g2 = torch.cat([g.real, g.imag], dim=-1)  # (B, R, S, 2K)
+            e_all = _split_complex(g2 @ f_tables.w_e).reshape(b, r_rx, s, c_num, p_num)
+            e = e_all.permute(0, 3, 1, 2, 4)[rows, pidx]  # (B, R, S, P)
+            d_all = _split_complex(m @ f_tables.w_d).reshape(b, s, c_num, p_num, p_num)
+            d = d_all.permute(0, 2, 1, 3, 4)[rows, pidx]  # (B, S, P, P)
+        else:
+            fc = f.conj()
+            e = torch.einsum("brsk,bpk->brsp", g, fc)
+            a = fc[:, :, None, :] * f[:, None, :, :]  # (B, P, P, K)
+            d = torch.einsum("bsk,bpqk->bspq", m.to(g.dtype), a)
 
-    # gram[(p,m),(q,n)] = T·√(w_p w_q)·Σ_s V[s,m]V[s,n]·D[s,p,q]
-    mt = v.shape[-1]
-    vv = (v[..., :, None] * v[..., None, :]).reshape(b, s, mt * mt)
-    dpq = d.reshape(b, s, n_paths * n_paths)
-    gmn_pq = vv.transpose(1, 2).to(d.dtype) @ dpq  # (B, MN, PQ)
-    gram = gmn_pq.reshape(b, mt, mt, n_paths, n_paths).permute(0, 3, 1, 4, 2)
-    gram = t_scale * gram * (sw[:, :, None, None, None] * sw[:, None, None, :, None])
-    r_dim = n_paths * mt
-    gram = gram.reshape(b, r_dim, r_dim)
+        # gram[(p,m),(q,n)] = T·√(w_p w_q)·Σ_s V[s,m]V[s,n]·D[s,p,q]
+        mt = v.shape[-1]
+        vv = (v[..., :, None] * v[..., None, :]).reshape(b, s, mt * mt)
+        dpq = d.reshape(b, s, n_paths * n_paths)
+        gmn_pq = vv.transpose(1, 2).to(d.dtype) @ dpq  # (B, MN, PQ)
+        gram = gmn_pq.reshape(b, mt, mt, n_paths, n_paths).permute(0, 3, 1, 4, 2)
+        gram = t_scale * gram * (sw[:, :, None, None, None] * sw[:, None, None, :, None])
+        r_dim = n_paths * mt
+        gram = gram.reshape(b, r_dim, r_dim)
 
-    p_ch = w_path.sum(-1)
-    snr = torch.as_tensor(snr_db, dtype=real, device=dev)
-    snr_lin = 10.0 ** (snr / 10.0)
-    sigma2 = (num_tx * p_ch / snr_lin).clamp(min=1e-8)  # (B,)
-    gram = gram + sigma2[:, None, None] * torch.eye(r_dim, dtype=gram.dtype, device=dev)
+        p_ch = w_path.sum(-1)
+        snr = torch.as_tensor(snr_db, dtype=real, device=dev)
+        snr_lin = 10.0 ** (snr / 10.0)
+        sigma2 = (num_tx * p_ch / snr_lin).clamp(min=1e-8)  # (B,)
+        gram = gram + sigma2[:, None, None] * torch.eye(r_dim, dtype=gram.dtype, device=dev)
 
-    sqrt_t = math.sqrt(t_scale)
-    ph = sqrt_t * torch.einsum("bsm,brsp->brpm", v.to(e.dtype), e) * sw[:, None, :, None]
-    rhs = ph.reshape(b, r_rx, r_dim).transpose(1, 2)  # (B, r, R)
+        sqrt_t = math.sqrt(t_scale)
+        ph = sqrt_t * torch.einsum("bsm,brsp->brpm", v.to(e.dtype), e) * sw[:, None, :, None]
+        rhs = ph.reshape(b, r_rx, r_dim).transpose(1, 2)  # (B, r, R)
     # the kernel in the estimate's precision, one step of iterative
     # refinement with the residual in float64
-    gram_lo = gram.to(out).contiguous()
-    z = hpd_solve(gram_lo, rhs.to(out).contiguous()).to(wide)
-    z = z + hpd_solve(gram_lo, (rhs - gram @ z).to(out).contiguous()).to(wide)
+    with annotate("mmse_full.solve"):
+        gram_lo = gram.to(out).contiguous()
+        z = hpd_solve(gram_lo, rhs.to(out).contiguous()).to(wide)
+        z = z + hpd_solve(gram_lo, (rhs - gram @ z).to(out).contiguous()).to(wide)
     sol = z.transpose(1, 2).reshape(b, r_rx, n_paths, mt)  # (B, R, P(q), m(n))
 
     # Ĥ = L·z·F/T by the push-through identity (see the docstring)
-    solw = sol * (sw / sqrt_t)[:, None, :, None]
-    h_sp = torch.einsum("bsn,brqn->bsrq", v.to(wide), solw)  # (B, S, R, P)
-    h_full = packed_complex_matmul(h_sp.to(out), freq_matrix)  # (B, S, R, K)
+    with annotate("mmse_full.reconstruct"):
+        solw = sol * (sw / sqrt_t)[:, None, :, None]
+        h_sp = torch.einsum("bsn,brqn->bsrq", v.to(wide), solw)  # (B, S, R, P)
+        h_full = packed_complex_matmul(h_sp.to(out), freq_matrix)  # (B, S, R, K)
     return h_full[:, :, :, None, :].expand(b, s, r_rx, num_tx, k)

@@ -8,7 +8,8 @@ into its own shared library, ``ce5g_torch/_build/<name>-<hash>.so``, with
 The hash covers the source and the flags, so an edited source rebuilds
 and an unchanged one loads in milliseconds. The library is loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds, not minutes.
-A missing ``nvcc`` or a failed build raises; there is no fallback.
+A missing ``nvcc`` or a failed build raises; there is no fallback. Each
+library loaded counts ``kernels.loaded`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ..utils.profiling import counters
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -85,6 +88,7 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             path = build([name])[name]
             _loaded[name] = ctypes.CDLL(str(path))
+            counters["kernels.loaded"] += 1
         return _loaded[name]
 
 

@@ -35,7 +35,9 @@ plain PyTorch (Cholesky plus two triangular solves, mirroring the JAX
 package's ``_xla_solve``). A system that is not positive definite gives
 NaN in both.
 
-``launches`` counts kernel launches.
+Each call runs in the span ``ops.hpd_solve`` and counts
+``ops.hpd_solve.<route>`` for a launch, ``ops.hpd_solve.plain`` on the CPU
+(``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -46,8 +48,11 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import annotate, counters
 from . import _build
 
+#: the kernel's routes (see the module note)
+ROUTES = ("registers", "cluster", "blocked")
 #: largest system the register kernel takes: the published matrix in ≤ 140 KB of shared memory
 MAX_N = 128
 #: right-hand sides that ride the elimination; the kernel takes any number
@@ -61,8 +66,6 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 #: takes n ≤ 16·NB with n + min(R, 8) ≤ 16·C·NA
 CLUSTER_INSTANCES = ((1, 9, 9), (1, 10, 10), (2, 6, 11), (2, 7, 14), (4, 4, 16), (8, 3, 20),
                      (8, 3, 24))
-
-launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,16 +193,17 @@ def hpd_solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         )
     if gram.device != rhs.device:
         raise ValueError(f"gram on {gram.device} but rhs on {rhs.device}")
-    if gram.device.type == "cpu":
-        return hpd_solve_plain(gram, rhs)
-    if gram.device.type != "cuda":
-        raise ValueError(f"hpd_solve runs on CPU or CUDA tensors, not {gram.device}")
-    return _launch(plan(*rhs.shape[1:]), gram, rhs)
+    with annotate("ops.hpd_solve"):
+        if gram.device.type == "cpu":
+            counters["ops.hpd_solve.plain"] += 1
+            return hpd_solve_plain(gram, rhs)
+        if gram.device.type != "cuda":
+            raise ValueError(f"hpd_solve runs on CPU or CUDA tensors, not {gram.device}")
+        return _launch(plan(*rhs.shape[1:]), gram, rhs)
 
 
 def _launch(pl: Plan, gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel ``pl`` names on CUDA tensors."""
-    global launches
     b, n, r = rhs.shape
     if gram.dtype != torch.complex64 or rhs.dtype != torch.complex64:
         raise TypeError(f"hpd_solve kernel takes complex64, got {gram.dtype}, {rhs.dtype}")
@@ -218,7 +222,7 @@ def _launch(pl: Plan, gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         *(pl.instance if pl.route == "cluster" else (0, 0, 0)),
         torch.cuda.current_stream(gram.device).cuda_stream,
     )
-    launches += 1
+    counters[f"ops.hpd_solve.{pl.route}"] += 1
     if status != 0:
         _build.check(_build.library("hpd_solve"), status, "hpd_solve kernel")
     return out

@@ -36,8 +36,10 @@ scratch, and a block per tile of columns stages just the sorted pilots
 its columns' windows reach, four antennas at a time. The squared
 distances are float32, exact while S² + K² ≤ 2²⁴ (S, K ≤ 4096).
 
-``launches`` counts wrapper calls that launched the kernel (one or two
-CUDA launches, by route).
+Each call runs in the span ``ops.interp`` and counts
+``ops.interp.<route>`` for a wrapper call that launched the kernel (one
+or two CUDA launches, by route), ``ops.interp.plain`` on the CPU
+(``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import annotate, counters
 from . import _build
 
 _CANDIDATES = 128
@@ -61,8 +64,6 @@ _MAX_SK = 4096
 _TILE = 128  # most columns a block of route 'tile' takes
 _COLS = 16  # columns a warp takes at once
 ROUTES = ("frame", "tile")
-
-launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,16 +260,18 @@ def interpolate_slots(pilot_values: torch.Tensor, positions: torch.Tensor,
         raise ValueError(
             f"values on {dev}, positions on {positions.device}, valid on {valid.device}"
         )
-    if dev.type == "cpu":
-        return interpolate_slots_plain(pilot_values, positions, valid.to(torch.float32),
-                                       grid_shape, method)
-    if dev.type != "cuda":
-        raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {dev}")
-    if pilot_values.dtype != torch.complex64:
-        raise TypeError(f"interpolation kernel takes complex64, got {pilot_values.dtype}")
-    if p == 0:
-        return torch.zeros(b, r, s, k, dtype=torch.complex64, device=dev)
-    return _launch(plan(r, p, s, k), pilot_values, positions, valid, grid_shape, method)
+    with annotate("ops.interp"):
+        if dev.type == "cpu":
+            counters["ops.interp.plain"] += 1
+            return interpolate_slots_plain(pilot_values, positions, valid.to(torch.float32),
+                                           grid_shape, method)
+        if dev.type != "cuda":
+            raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {dev}")
+        if pilot_values.dtype != torch.complex64:
+            raise TypeError(f"interpolation kernel takes complex64, got {pilot_values.dtype}")
+        if p == 0:
+            return torch.zeros(b, r, s, k, dtype=torch.complex64, device=dev)
+        return _launch(plan(r, p, s, k), pilot_values, positions, valid, grid_shape, method)
 
 
 def _launch(pl: Plan, pilot_values, positions, valid, grid_shape, method):
@@ -292,8 +295,7 @@ def _launch(pl: Plan, pilot_values, positions, valid, grid_shape, method):
         b, r, p, s, k, _METHODS.index(method), pl.tile, pl.tiles, pl.cap, pl.rc, pl.smem,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    global launches
-    launches += 1
+    counters[f"ops.interp.{pl.route}"] += 1
     _build.check(lib, status, "interp kernel")
     return out
 

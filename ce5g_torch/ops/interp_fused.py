@@ -26,8 +26,10 @@ tile's candidates in shared memory where they fit ('shared'), and else
 writes the candidates to a device scratch by a first kernel ('global').
 K ≤ 32767 (a column is a 16-bit integer).
 
-``launches`` counts wrapper calls that launched the kernel (one or two
-CUDA launches, by route).
+Each call runs in the span ``ops.interp_fused`` and counts
+``ops.interp_fused.<route>`` for a wrapper call that launched the kernel
+(one or two CUDA launches, by route), ``ops.interp_fused.plain`` on the
+CPU (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import annotate, counters
 from . import _build
 
 #: shared memory a block may use on the H100
@@ -48,8 +51,6 @@ _RC = 8  # antennas a thread accumulates at once
 _LIST = 8  # accepted candidates a thread lists in shared memory
 _THREADS = 256
 ROUTES = ("shared", "global")
-
-launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,13 +209,15 @@ def interpolate_grid_fused(value_grid: torch.Tensor, mask: torch.Tensor, method:
         )
     if mask.device != value_grid.device:
         raise ValueError(f"mask on {mask.device} but values on {value_grid.device}")
-    if value_grid.device.type == "cpu":
-        return interpolate_grid_plain(value_grid, mask.to(torch.float32), method)
-    if value_grid.device.type != "cuda":
-        raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {value_grid.device}")
-    if value_grid.dtype != torch.complex64:
-        raise TypeError(f"interpolation kernel takes complex64, got {value_grid.dtype}")
-    return _launch(plan(r, s, k), value_grid, mask, method)
+    with annotate("ops.interp_fused"):
+        if value_grid.device.type == "cpu":
+            counters["ops.interp_fused.plain"] += 1
+            return interpolate_grid_plain(value_grid, mask.to(torch.float32), method)
+        if value_grid.device.type != "cuda":
+            raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {value_grid.device}")
+        if value_grid.dtype != torch.complex64:
+            raise TypeError(f"interpolation kernel takes complex64, got {value_grid.dtype}")
+        return _launch(plan(r, s, k), value_grid, mask, method)
 
 
 def _launch(pl: Plan, value_grid, mask, method):
@@ -231,8 +234,7 @@ def _launch(pl: Plan, value_grid, mask, method):
         b, r, s, k, int(method == "linear"), pl.tile, pl.tiles, pl.smem,
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
-    global launches
-    launches += 1
+    counters[f"ops.interp_fused.{pl.route}"] += 1
     _build.check(lib, status, "interp_fused kernel")
     return out
 

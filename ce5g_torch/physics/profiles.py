@@ -20,6 +20,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
+from ..utils.profiling import counters
+
 MAX_PATHS = 9
 PROFILE_NAMES: Tuple[str, ...] = ("EPA", "EVA", "ETU")
 PROFILE_INDEX: Dict[str, int] = {n: i for i, n in enumerate(PROFILE_NAMES)}
@@ -66,9 +68,11 @@ class ProfileTable:
 
 
 def cached(table: ProfileTable, key, build: Callable):
-    """``build()`` once per (table, key); later calls return the same value."""
+    """``build()`` once per (table, key); later calls return the same value.
+    Each build counts ``tables.built`` (``utils.profiling``)."""
     if key not in table._cache:
         table._cache[key] = build()
+        counters["tables.built"] += 1
     return table._cache[key]
 
 

@@ -32,6 +32,7 @@ import torch
 
 from ..config import ExperimentConfig
 from ..device import resolve_device
+from ..utils.profiling import annotate
 from .jakes import dense_fading, jakes_oscillator_params, path_gains_symbol_sampled
 from .mimo import (apply_channel, apply_channel_common_grid, frequency_response,
                    time_domain_apply)
@@ -209,34 +210,42 @@ def simulate_batch(
     """Simulate a batch of MIMO-OFDM frames in the frequency domain.
 
     ``draws`` and ``params`` are moved to ``device``; every output lies there.
+    Runs in the span ``physics.simulate``, its stages in ``physics.pattern``
+    (the pilot pattern and the TX grid), ``physics.jakes``,
+    ``physics.response`` and ``physics.received`` (``utils.profiling``).
     """
-    dev, draws, params, table, pattern, tx, pidx = _prepare(
-        draws, params, cfg, table, orthogonal_pilots, device)
-    ofdm = cfg.ofdm
-    amp_table, f_table = table_tensors(table, cfg, dev)
-    amp = amp_table[pidx]  # (B, P)
-    gains = path_gains_symbol_sampled(
-        draws.jakes_angles,
-        draws.jakes_phases,
-        params.doppler_hz,
-        amp,
-        ofdm.num_symbols,
-        ofdm.samples_per_symbol,
-        ofdm.sampling_rate,
-    )  # (B, S, R, T, P)
+    with annotate("physics.simulate"):
+        with annotate("physics.pattern"):
+            dev, draws, params, table, pattern, tx, pidx = _prepare(
+                draws, params, cfg, table, orthogonal_pilots, device)
+        ofdm = cfg.ofdm
+        amp_table, f_table = table_tensors(table, cfg, dev)
+        amp = amp_table[pidx]  # (B, P)
+        with annotate("physics.jakes"):
+            gains = path_gains_symbol_sampled(
+                draws.jakes_angles,
+                draws.jakes_phases,
+                params.doppler_hz,
+                amp,
+                ofdm.num_symbols,
+                ofdm.samples_per_symbol,
+                ofdm.sampling_rate,
+            )  # (B, S, R, T, P)
 
-    freq_matrix = f_table[pidx]  # (B, P, K)
-    h = frequency_response(gains, freq_matrix)  # (B, S, R, T, K)
+        freq_matrix = f_table[pidx]  # (B, P, K)
+        with annotate("physics.response"):
+            h = frequency_response(gains, freq_matrix)  # (B, S, R, T, K)
 
-    if orthogonal_pilots:
-        rx = apply_channel(tx, h, params.snr_db, draws.noise_re, draws.noise_im)
-    else:
-        # common grid on all TX ⇒ the TX sum moves onto the path gains
-        rx = apply_channel_common_grid(
-            tx[:, :, 0, :], gains, freq_matrix, params.snr_db,
-            draws.noise_re, draws.noise_im,
-        )
-    return _frame(tx, rx, h, pattern, params)
+        with annotate("physics.received"):
+            if orthogonal_pilots:
+                rx = apply_channel(tx, h, params.snr_db, draws.noise_re, draws.noise_im)
+            else:
+                # common grid on all TX ⇒ the TX sum moves onto the path gains
+                rx = apply_channel_common_grid(
+                    tx[:, :, 0, :], gains, freq_matrix, params.snr_db,
+                    draws.noise_re, draws.noise_im,
+                )
+        return _frame(tx, rx, h, pattern, params)
 
 
 def simulate_batch_time_domain(

@@ -10,6 +10,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..device import resolve_device
+from .profiling import annotate
 
 _EPS = 1e-12
 
@@ -31,10 +32,12 @@ def mse(h_true, h_est, axes: Optional[Sequence[int]] = None):
 
 
 def nmse(h_true, h_est, axes: Optional[Sequence[int]] = None):
-    """MSE / mean|H_true|² (reference: src/utils.py:166-170)."""
-    pwr = h_true.abs() ** 2
-    p = pwr.mean() if axes is None else pwr.mean(dim=tuple(axes))
-    return mse(h_true, h_est, axes) / (p + _EPS)
+    """MSE / mean|H_true|² (reference: src/utils.py:166-170), in the span
+    ``metrics.nmse`` (``utils.profiling``)."""
+    with annotate("metrics.nmse"):
+        pwr = h_true.abs() ** 2
+        p = pwr.mean() if axes is None else pwr.mean(dim=tuple(axes))
+        return mse(h_true, h_est, axes) / (p + _EPS)
 
 
 def nmse_db(h_true, h_est, axes: Optional[Sequence[int]] = None):

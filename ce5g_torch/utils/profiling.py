@@ -4,14 +4,41 @@ Port of ``ce5g_tpu.utils.profiling`` (the reference only takes
 ``time.time()`` deltas, test_phase2_comparison.py:76-99, and logs
 samples/s, run_phase3_robust.py:232-234):
 
+  * :func:`annotate` — the port's span, one at each layer boundary of the
+    timed entry (``physics.simulate`` and its stages, ``estimators.
+    estimate`` and the estimators' stages, ``ops.<kernel>``,
+    ``metrics.nmse``). Off by default: a span then costs one check of a
+    module flag and returns one shared null context. Inside
+    :func:`recording` each span keeps, in memory, its name, the index of
+    the span that opened it (−1 at the top) and its start and end from
+    ``time.time_ns()`` (Unix ns: the clock of a profiler trace's ``ts`` µs
+    + ``baseTimeNanoseconds``), and opens a ``record_function`` of its
+    name, shown on the trace's timeline. A span records no CUDA event and
+    makes no CUDA call;
+  * :data:`counters` — the port's counters, always on, each incremented
+    where its work happens:
+
+      - ``ops.hpd_solve.<route>`` (``registers``, ``cluster``,
+        ``blocked``), ``ops.interp_fused.<route>`` (``shared``,
+        ``global``), ``ops.interp.<route>`` (``frame``, ``tile``): kernel
+        launches by route (an interpolation route may be two CUDA
+        launches); ``ops.<kernel>.plain``: calls on CPU tensors, which run
+        the plain PyTorch version (:func:`launches` sums a kernel's
+        routes);
+      - ``time_rank.computed``: runs of ``estimators.api.auto_time_rank``'s
+        host loop;
+      - ``tables.built``: misses of ``physics.profiles.cached`` (device
+        tables built from a profile table);
+      - ``kernels.loaded``: CUDA libraries loaded by ``ops._build.library``
+        (built by nvcc first where needed);
+
   * :func:`trace` — ``torch.profiler`` around a block, written as a
     TensorBoard trace (the ``tensorboard_trace_handler`` layout, which
-    Perfetto and chrome://tracing also open);
+    Perfetto and chrome://tracing also open), with the spans recorded
+    in the block beside it;
   * :class:`Stopwatch` — wall-clock timing that keeps the first call
     apart (build and warm-up) and synchronises the card after each call,
     as the JAX package's waits with ``block_until_ready``;
-  * :func:`annotate` — a named ``record_function`` scope, shown on the
-    trace's timeline;
   * :func:`timed_windows` — the measuring tools' clock (``cli.bench`` and
     the rest): windows of batches whose results are summed on the card and
     read once at each window's end;
@@ -23,19 +50,104 @@ samples/s, run_phase3_robust.py:232-234):
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import json
+import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from .tree import leaves_with_path
 
 
+#: the port's counters (see the module note); never reset, read as differences
+counters: "collections.Counter[str]" = collections.Counter()
+
+
+def launches(kernel: str, counts: Optional[Dict[str, int]] = None) -> int:
+    """Launches of the kernel ``ops.<kernel>`` in ``counts`` (the registry
+    by default): the sum of its routes' counters, the plain version's
+    calls left out."""
+    counts = counters if counts is None else counts
+    prefix = f"ops.{kernel}."
+    return sum(n for key, n in counts.items()
+               if key.startswith(prefix) and key != prefix + "plain")
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span. ``parent`` is the index in the buffer of the
+    span that opened it, −1 at the top; ``start_ns`` and ``end_ns`` are
+    ``time.time_ns()`` (``end_ns`` 0 while the span is open)."""
+
+    name: str
+    parent: int
+    start_ns: int
+    end_ns: int = 0
+
+
+_recording = False
+_spans: List[Span] = []
+_open: List[int] = []  # buffer indices of the spans open now, innermost last
+_NULL = contextlib.nullcontext()
+
+
+class _Recorded:
+    """A span while recording is on."""
+
+    __slots__ = ("name", "span", "scope")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> Span:
+        self.span = Span(self.name, _open[-1] if _open else -1, time.time_ns())
+        _open.append(len(_spans))
+        _spans.append(self.span)
+        self.scope = torch.profiler.record_function(self.name)
+        self.scope.__enter__()
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        self.scope.__exit__(*exc)
+        self.span.end_ns = time.time_ns()
+        _open.pop()
+
+
+def annotate(name: str):
+    """The port's span ``name``: a context manager that records the block
+    inside :func:`recording` and does nothing outside it."""
+    if not _recording:
+        return _NULL
+    return _Recorded(name)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Span]]:
+    """Turn the spans on for the block and yield the buffer they fill, a
+    new list, in the order the spans opened. Spans are recorded from one
+    thread; recording does not nest."""
+    global _recording, _spans, _open
+    if _recording:
+        raise RuntimeError("spans are already recording")
+    _spans, _open = [], []
+    _recording = True
+    try:
+        yield _spans
+    finally:
+        _recording = False
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block (host, and the card when there is one) and write
-    the trace under ``log_dir``. Usage::
+    the trace under ``log_dir``, with the port's spans recorded in the
+    block beside it as ``spans.<pid>.<ns>.json`` (``{"clock":
+    "time_ns", "spans": [{name, parent, start_ns, end_ns}, ...]}``: Unix
+    ns, the trace's ``ts`` µs + ``baseTimeNanoseconds``). Usage::
 
         with profiling.trace("logs/profile"):
             step(...)
@@ -43,16 +155,14 @@ def trace(log_dir: str):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
+    with recording() as spans, torch.profiler.profile(
         activities=activities,
         on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
     ):
         yield
-
-
-def annotate(name: str):
-    """Named scope that shows up on the trace's timeline."""
-    return torch.profiler.record_function(name)
+    path = os.path.join(str(log_dir), f"spans.{os.getpid()}.{time.time_ns()}.json")
+    with open(path, "w") as fh:
+        json.dump({"clock": "time_ns", "spans": [dataclasses.asdict(sp) for sp in spans]}, fh)
 
 
 def _wait(out) -> None:

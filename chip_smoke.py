@@ -179,6 +179,7 @@ per-kernel numbers, and last the device line.
 Imports neither JAX nor ce5g_tpu. Needs a CUDA card: without one it exits
 non-zero and prints no result.
 """
+import collections
 import itertools
 import json
 import math
@@ -775,17 +776,25 @@ class capturing:
             setattr(mod, attr, fn)
 
 
-def reset_launches():
-    from ce5g_torch.ops import hpd_solve, interp, interp_fused
+_launch_base = collections.Counter()  # the port's counters at the last reset_launches()
 
-    hpd_solve.launches = interp_fused.launches = interp.launches = 0
+
+def reset_launches():
+    """Count the kernels' launches from here on (``read_launches``)."""
+    from ce5g_torch.utils import profiling
+
+    global _launch_base
+    _launch_base = profiling.counters.copy()
 
 
 def read_launches():
-    from ce5g_torch.ops import hpd_solve, interp, interp_fused
+    """Each kernel's launches since the last ``reset_launches``, all routes
+    (``utils.profiling.counters``)."""
+    from ce5g_torch.ops import _build
+    from ce5g_torch.utils import profiling
 
-    return {"hpd_solve": hpd_solve.launches, "interp_fused": interp_fused.launches,
-            "interp": interp.launches}
+    moved = profiling.counters - _launch_base
+    return {k: profiling.launches(k, moved) for k in _build.KERNELS}
 
 
 def main_path(dev, b):
@@ -2934,6 +2943,7 @@ def envelope_hard_cases(dev):
     from ce5g_torch.ops import hpd_solve as hpd_mod
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as grid_mod
+    from ce5g_torch.utils import profiling
 
     worst = {"interp_fused": 0.0, "interp": 0.0, "hpd_solve": 0.0}
     for case in hard_cases.GRID_CASES:
@@ -2969,9 +2979,12 @@ def envelope_hard_cases(dev):
     for case in ENVELOPE_HPD_CASES:
         gram, rhs, bad = hard_cases.hpd_case(case)
         gram, rhs = gram.to(dev), rhs.to(dev)
-        before = hpd_mod.launches
+        before = profiling.counters.copy()
         x = hpd_mod.hpd_solve(gram, rhs)
-        fail_unless(hpd_mod.launches == before + 1, f"hpd_solve on hard case {case} launched")
+        moved = profiling.counters - before
+        route = f"ops.hpd_solve.{hpd_mod.plan(*rhs.shape[1:]).route}"
+        fail_unless(profiling.launches("hpd_solve", moved) == moved[route] == 1,
+                    f"hpd_solve on hard case {case} launched once by its plan's route: {moved}")
         ref = hpd_mod.hpd_solve_plain(gram, rhs)
         is_bad = torch.zeros(gram.shape[0], dtype=torch.bool, device=dev)
         is_bad[list(bad)] = True

@@ -37,6 +37,7 @@ from ce5g_torch.ops import hard_cases
 from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as grid_mod
+from ce5g_torch.utils import profiling
 
 from _torch_parity import jax_params, port_cfg, simulate_both
 
@@ -434,9 +435,10 @@ def test_grid_kernel_envelope_matches_plain(card, case, route):
     for r in (4,) + hard_cases.WIDE_R:
         v, mask = (x.to(card) for x in hard_cases.grid_case(case, r))
         for method in ("nearest", "linear"):
-            before = grid_mod.launches
+            before = profiling.counters.copy()
             out = grid_mod._launch(grid_mod._plan(r, *mask.shape[1:], route), v, mask, method)
-            assert grid_mod.launches == before + 1
+            moved = profiling.counters - before
+            assert profiling.launches("interp_fused", moved) == moved[f"ops.interp_fused.{route}"] == 1
             ref = grid_mod.interpolate_grid_plain(v, mask, method)
             assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max()), (r, method)
 
@@ -453,9 +455,10 @@ def test_slot_kernel_envelope_matches_plain(card, case, route):
             continue  # the frame does not fit one block: only 'tile' takes it
         pl = slot_mod._plan(r, p, *c["grid"], route)
         for method in ("nearest", "linear", "cubic"):
-            before = slot_mod.launches
+            before = profiling.counters.copy()
             out = slot_mod._launch(pl, v, pos, valid, c["grid"], method)
-            assert slot_mod.launches == before + 1
+            moved = profiling.counters - before
+            assert profiling.launches("interp", moved) == moved[f"ops.interp.{route}"] == 1
             ref = slot_mod.interpolate_slots_plain(v, pos, valid, c["grid"], method)
             assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max()), (r, method)
             assert bool((out[valid.sum(-1) == 0] == 0).all())
@@ -483,9 +486,11 @@ def _hpd_holds(x, ref, bad):
 def test_hpd_kernel_envelope_matches_plain(card, case):
     gram, rhs, bad = hard_cases.hpd_case(case)
     g, h = gram.to(card), rhs.to(card)
-    before = hpd_mod.launches
+    before = profiling.counters.copy()
     x = hpd_mod.hpd_solve(g, h)
-    assert hpd_mod.launches == before + 1
+    moved = profiling.counters - before
+    route = f"ops.hpd_solve.{hpd_mod.plan(*h.shape[1:]).route}"
+    assert profiling.launches("hpd_solve", moved) == moved[route] == 1
     _hpd_holds(x, hpd_mod.hpd_solve_plain(g, h), bad)
 
 

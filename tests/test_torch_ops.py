@@ -19,6 +19,7 @@ from ce5g_torch.ops import hard_cases
 from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as interp_mod
+from ce5g_torch.utils import profiling
 
 
 def _hpd_problem(seed, b, n, r, cond=100.0):
@@ -98,7 +99,7 @@ def test_hpd_limits_and_work():
 
 
 def test_cpu_tensors_take_the_plain_version():
-    before = (hpd_mod.launches, interp_mod.launches, slot_mod.launches)
+    before = profiling.counters.copy()
     gram, rhs = _hpd_problem(5, 2, 6, 2)
     hpd_mod.hpd_solve(torch.from_numpy(gram), torch.from_numpy(rhs))
     interp_mod.interpolate_grid_fused(
@@ -108,7 +109,9 @@ def test_cpu_tensors_take_the_plain_version():
         torch.zeros(1, 2, 23, dtype=torch.complex64), torch.zeros(1, 23, 2, dtype=torch.int32),
         torch.zeros(1, 23), (6, 39), "cubic",
     )
-    assert (hpd_mod.launches, interp_mod.launches, slot_mod.launches) == before
+    moved = profiling.counters - before
+    assert moved == {"ops.hpd_solve.plain": 1, "ops.interp_fused.plain": 1, "ops.interp.plain": 1}
+    assert [profiling.launches(k, moved) for k in ("hpd_solve", "interp_fused", "interp")] == [0] * 3
 
 
 def _interp_inputs(b, r, s, k, density=0.10, seed=0):
@@ -344,9 +347,11 @@ def test_hpd_kernel_matches_plain(card, b, n, r):
 def test_hpd_kernel_hard_cases_match_plain(card, case):
     gram, rhs, bad = hard_cases.hpd_case(case)
     g, h = gram.to(card), rhs.to(card)
-    before = hpd_mod.launches
+    before = profiling.counters.copy()
     x = hpd_mod.hpd_solve(g, h)
-    assert hpd_mod.launches == before + 1
+    moved = profiling.counters - before
+    route = f"ops.hpd_solve.{hpd_mod.plan(*h.shape[1:]).route}"
+    assert profiling.launches("hpd_solve", moved) == moved[route] == 1
     ref = hpd_mod.hpd_solve_plain(g, h)
     is_bad = torch.zeros(gram.shape[0], dtype=torch.bool)
     is_bad[list(bad)] = True
@@ -395,9 +400,11 @@ def test_slot_interp_kernel_matches_plain(card, r, density, method):
     vals, pos, valid = _slot_inputs(8, r, 14, 599, density)
     valid[3] = 0.0  # a frame with no valid slot
     v, po, ok = (torch.from_numpy(x).to(card) for x in (vals, pos, valid))
-    before = slot_mod.launches
+    before = profiling.counters.copy()
     out = slot_mod.interpolate_slots(v, po, ok, (14, 599), method)
-    assert slot_mod.launches == before + 1
+    moved = profiling.counters - before
+    route = f"ops.interp.{slot_mod.plan(r, v.shape[-1], 14, 599).route}"
+    assert profiling.launches("interp", moved) == moved[route] == 1
     ref = slot_mod.interpolate_slots_plain(v, po, ok, (14, 599), method)
     assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
     assert bool((out[3] == 0).all())
@@ -409,9 +416,11 @@ def test_slot_interp_kernel_matches_plain(card, r, density, method):
 @pytest.mark.parametrize("case", hard_cases.GRID_CASES)
 def test_interp_kernel_hard_cases_match_plain(card, case, r, method):
     vals, mask = (x.to(card) for x in hard_cases.grid_case(case, r))
-    before = interp_mod.launches
+    before = profiling.counters.copy()
     out = interp_mod.interpolate_grid_fused(vals, mask, method)
-    assert interp_mod.launches == before + 1
+    moved = profiling.counters - before
+    route = f"ops.interp_fused.{interp_mod.plan(r, *mask.shape[1:]).route}"
+    assert profiling.launches("interp_fused", moved) == moved[route] == 1
     ref = interp_mod.interpolate_grid_plain(vals, mask, method)
     assert float((out - ref).abs().max()) <= 1e-5 * float(vals.abs().max())
 

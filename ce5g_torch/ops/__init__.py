@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version and a launch counter: ``hpd_solve``, ``interp_fused`` and
-``interp``. The sources are in ``ce5g_torch/csrc``; ``_build`` compiles
-them on first use."""
+version and a launch counter: ``hpd_solve``, ``interp_fused``, ``interp``
+and ``nmse`` (the score's reduction). The sources are in
+``ce5g_torch/csrc``; ``_build`` compiles them on first use."""

@@ -10,9 +10,10 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..device import resolve_device
+from ..ops import nmse as nmse_op
 from .profiling import annotate
 
-_EPS = 1e-12
+EPS = 1e-12  # the reference's (src/utils.py:44-46, 166-170)
 
 
 def db2linear(db):
@@ -22,7 +23,7 @@ def db2linear(db):
 
 def linear2db(x):
     """10·log10(x + 1e-12) (reference: src/utils.py:44-46)."""
-    return 10.0 * torch.log10(torch.as_tensor(x) + _EPS)
+    return 10.0 * torch.log10(torch.as_tensor(x) + EPS)
 
 
 def mse(h_true, h_est, axes: Optional[Sequence[int]] = None):
@@ -32,12 +33,13 @@ def mse(h_true, h_est, axes: Optional[Sequence[int]] = None):
 
 
 def nmse(h_true, h_est, axes: Optional[Sequence[int]] = None):
-    """MSE / mean|H_true|² (reference: src/utils.py:166-170), in the span
-    ``metrics.nmse`` (``utils.profiling``)."""
+    """MSE / mean|H_true|² (reference: src/utils.py:166-170), as
+    (Σ|H − Ĥ|²/N) / (Σ|H|²/N + 1e-12), float32, in the span
+    ``metrics.nmse`` (``utils.profiling``). ``ops.nmse`` reduces: the
+    plain expression on CPU tensors, one pass of its kernel on CUDA
+    tensors (complex64 only)."""
     with annotate("metrics.nmse"):
-        pwr = h_true.abs() ** 2
-        p = pwr.mean() if axes is None else pwr.mean(dim=tuple(axes))
-        return mse(h_true, h_est, axes) / (p + _EPS)
+        return nmse_op.nmse(h_true, h_est, axes)
 
 
 def nmse_db(h_true, h_est, axes: Optional[Sequence[int]] = None):
@@ -56,9 +58,10 @@ def ber_approximation(snr_db, nmse_linear):
 
 def evaluate_estimator(h_true, h_est) -> Dict[str, torch.Tensor]:
     """MSE / NMSE / NMSE dB of one estimate over every axis
-    (reference: src/baseline_estimators.py:315-337)."""
-    m = mse(h_true, h_est)
-    n = nmse(h_true, h_est)
+    (reference: src/baseline_estimators.py:315-337); the MSE and the NMSE
+    from one ``ops.nmse`` reduction, in the span ``metrics.nmse``."""
+    with annotate("metrics.nmse"):
+        m, n = nmse_op.mse_nmse(h_true, h_est)
     return {"mse": m, "nmse": n, "nmse_db": linear2db(n)}
 
 

@@ -4,7 +4,7 @@
     python3 path/to/chip_smoke.py      (from any directory)
 
 Phases, one line each; any failure exits non-zero:
-  1. setup: the card's name and power limit; build the three CUDA kernels;
+  1. setup: the card's name and power limit; build the four CUDA kernels;
   2. the HPD-solve kernel against its plain PyTorch version, on random
      systems and on the hard cases of ce5g_torch.ops.hard_cases;
   3. the grid-interpolation kernel against its plain PyTorch version, at
@@ -35,7 +35,9 @@ Phases, one line each; any failure exits non-zero:
      B = n = R = 1): what "0" is for this method. Then each kernel against
      the recorded times of the body it replaced (HPD at four shapes by
      ``ms``; the interpolation kernels at 1% and 20% pilots by back-to-back
-     calls, as their recorded times were taken), and pipeline frames/s;
+     calls, as their recorded times were taken), the score's kernel
+     (``nmse``) at the nr100_4x64 benchmark batch beside its bound and the
+     plain chain, and pipeline frames/s;
   8. where a batch goes: a torch.profiler trace of three warm batches of
      the pipeline for 'mmse_full', 'ls' and 'ls:cubic' — the ten device
      operations with the most time, the device's idle share of the window
@@ -753,10 +755,12 @@ class capturing:
     def __init__(self):
         import ce5g_torch.estimators.interpolate as interp_est
         import ce5g_torch.estimators.mmse as mmse_est
+        import ce5g_torch.ops.nmse as nmse_mod
 
         self.sites = [(mmse_est, "hpd_solve", "hpd_solve"),
                       (interp_est, "interpolate_grid_fused", "interp_fused"),
-                      (interp_est, "interpolate_slots", "interp")]
+                      (interp_est, "interpolate_slots", "interp"),
+                      (nmse_mod, "nmse", "nmse")]
         self.args = {}
 
     def __enter__(self):
@@ -777,6 +781,9 @@ class capturing:
 
 
 _launch_base = collections.Counter()  # the port's counters at the last reset_launches()
+#: the estimators' kernels; ``nmse`` launches only where a path scores with
+#: ``utils.metrics.nmse``
+ESTIMATOR_KERNELS = ("hpd_solve", "interp_fused", "interp")
 
 
 def reset_launches():
@@ -970,6 +977,7 @@ def hold_against_plain(path, captured):
     from ce5g_torch.ops import hpd_solve as hpd_mod
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
+    from ce5g_torch.ops import nmse as nmse_mod
 
     errs, parts = {}, []
     if "hpd_solve" in captured:
@@ -1001,8 +1009,37 @@ def hold_against_plain(path, captured):
                      f"{slot_args[-1]} max abs {errs['interp']:.3e} of scale {slot_scale:.3f}")
         fail_unless(errs["interp"] <= 1e-5 * slot_scale,
                     f"{path} interp max abs error <= 1e-5 x value scale")
+    if "nmse" in captured:
+        h, e, axes = captured["nmse"]
+        got, plain = nmse_mod.nmse(h, e, axes), nmse_mod.nmse_plain(h, e, axes)
+        want = nmse_float64(h, e, axes)
+        errs["nmse"] = float((got - plain).abs().max())
+        got_rel = float(((got.double() - want).abs() / want.abs()).max())
+        plain_rel = float(((plain.double() - want).abs() / want.abs()).max())
+        parts.append(f"nmse {tuple(h.shape)} axes {axes} max abs vs plain {errs['nmse']:.3e}, "
+                     f"relative to float64 {got_rel:.3e} (plain {plain_rel:.3e})")
+        fail_unless(got_rel <= 1e-6,
+                    f"{path} nmse within 1e-6 of its float64 value ({got_rel:.2e})")
     print(f"{path} inputs, kernel vs plain: " + "; ".join(parts))
     return errs
+
+
+def nmse_float64(h, e, axes=None):
+    """The NMSE of H and Ĥ in float64: ``ops.nmse``'s plain expression on
+    complex128, over every axis a frame at a time."""
+    import torch
+    from ce5g_torch.ops import nmse as nmse_mod
+
+    def wide(x):
+        return x.to(torch.complex128)
+
+    if axes is not None:
+        return nmse_mod.nmse_plain(wide(h), wide(e), axes)
+    e = e.expand(h.shape)
+    err = sum(float(((wide(hi) - wide(ei)).abs() ** 2).sum()) for hi, ei in zip(h, e))
+    pwr = sum(float((wide(hi).abs() ** 2).sum()) for hi in h)
+    return torch.tensor((err / h.numel()) / (pwr / h.numel() + 1e-12), dtype=torch.float64,
+                        device=h.device)
 
 
 def kernel_row(name, source, replaces, launches, err, fn, plain, work, library=None):
@@ -1017,6 +1054,58 @@ def kernel_row(name, source, replaces, launches, err, fn, plain, work, library=N
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None if library is None else cuda_ms(library)[0],
     }
+
+
+#: the score's shape at the benchmark's nr100_4x64 batch (the main path's
+#: kernel row has the bench_4x4 batch)
+NMSE_NR100 = (64, 14, 64, 4, 3275)
+
+
+def nmse_times(dev):
+    """The score's kernel at the nr100_4x64 batch beside its bound and the
+    plain chain (back to back), held to float64, on three layouts: Ĥ
+    broadcast along TX from a (B, R, S, K) array as the LS estimators
+    return it; a contiguous Ĥ of H's shape; one TX antenna (T = 1) with a
+    contiguous (B, S, R, K) Ĥ, as mmse_full returns it on a SIMO
+    configuration. In the last two everything merges into one line, which
+    the plan cuts into pieces; the kernel must beat the chain on each."""
+    import torch
+    from ce5g_torch.ops import nmse as nmse_mod
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b, s, r, t, k = NMSE_NR100
+
+    def broadcast(tt):
+        e = torch.randn(b, r, s, k, dtype=torch.complex64, device=dev, generator=gen)
+        return e.transpose(1, 2)[:, :, :, None, :].expand(b, s, r, tt, k)
+
+    def contiguous(tt):
+        return torch.randn(b, s, r, tt, k, dtype=torch.complex64, device=dev, generator=gen)
+
+    def one_antenna(tt):
+        e = torch.randn(b, s, r, k, dtype=torch.complex64, device=dev, generator=gen)
+        return e[:, :, :, None, :].expand(b, s, r, tt, k)
+
+    for label, tt, make in (("Ĥ broadcast along TX", t, broadcast),
+                            ("Ĥ contiguous", t, contiguous),
+                            ("one TX antenna, Ĥ contiguous", 1, one_antenna)):
+        shape = (b, s, r, tt, k)
+        h = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+        e = make(tt)
+        pl = nmse_mod.plan(h, e)
+        ms = graph_ms(lambda: nmse_mod.nmse(h, e))
+        plain = cuda_ms(lambda: nmse_mod.nmse_plain(h, e))
+        bound_ms, by = bound(*nmse_mod.work(h, e))
+        rel = abs(float(nmse_mod.nmse(h, e)) / float(nmse_float64(h, e)) - 1.0)
+        print(f"nmse at {shape}, {label}: kernel {ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), "
+              f"bound {bound_ms:.4f} ms ({by}), {100.0 * bound_ms / ms[0]:.1f}% of it; plain "
+              f"chain {plain[0]:.4f} ms; route {pl.route}, team {pl.team}, grid {pl.grid}, "
+              f"{pl.chunks} work items, {pl.pieces} pieces a line; relative to float64 "
+              f"{rel:.2e}")
+        fail_unless(rel <= 1e-6, f"nmse at {shape}, {label}, within 1e-6 of float64")
+        fail_unless(ms[0] < plain[0], f"nmse at {shape}, {label}, faster than the plain chain")
+        del h, e
+        torch.cuda.empty_cache()
 
 
 def slower_than_replaced(dev):
@@ -2350,9 +2439,10 @@ def time_domain_phase(dev, card, tune_sets):
     launches = read_launches()
     print("  (c) kernels launched on the time-domain and parallel paths: "
           + ", ".join(f"{k} {v}" for k, v in launches.items()))
-    fail_unless(all(v > 0 for v in launches.values()) and set(cap.args) == set(launches),
-                f"every kernel launched and captured on the time-domain path: {launches}, "
-                f"{sorted(cap.args)}")
+    fail_unless(all(launches[k] > 0 for k in ESTIMATOR_KERNELS)
+                and set(cap.args) == {k for k, v in launches.items() if v > 0},
+                f"every estimator kernel launched, and every kernel launched captured, on the "
+                f"time-domain path: {launches}, {sorted(cap.args)}")
     hold_against_plain("time-domain path", cap.args)
     print(f"phase 15 wall time: {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -2674,9 +2764,10 @@ def cli_phase(dev, card, workdir, ds, serving_results, blind_results):
         launches = read_launches()
     print("  kernels launched by the command line in this process: "
           + ", ".join(f"{k} {v}" for k, v in launches.items()))
-    fail_unless(all(n > 0 for n in launches.values()) and set(cap.args) == set(launches),
-                f"every kernel launched and captured on the command line: {launches}, "
-                f"{sorted(cap.args)}")
+    fail_unless(all(launches[k] > 0 for k in ESTIMATOR_KERNELS)
+                and set(cap.args) == {k for k, v in launches.items() if v > 0},
+                f"every estimator kernel launched, and every kernel launched captured, on the "
+                f"command line: {launches}, {sorted(cap.args)}")
     hold_against_plain("command line", cap.args)
     batch_dependence(dev, ds)
     fail_unless("jax" not in sys.modules, "jax is not imported")
@@ -2811,8 +2902,8 @@ def measuring_phase(dev, card, rates):
               f"{line['batch']}; init {line['init_s']:.2f} s, first window {line['compile_s']:.2f} "
               f"s): " + "; ".join(parts))
         print("  kernels launched by bench: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
-        fail_unless(all(n > 0 for n in launches.values()),
-                    f"every kernel launched by bench: {launches}")
+        fail_unless(all(launches[k] > 0 for k in ESTIMATOR_KERNELS),
+                    f"every estimator kernel launched by bench: {launches}")
 
         suite_path = os.path.join(workdir, "benchmark_suite.json")
         cli_run(walls, "benchmark_suite", "--train", "--train-models", "cnn",
@@ -3190,6 +3281,7 @@ def main():
     from ce5g_torch.ops import hpd_solve as hpd_mod
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
+    from ce5g_torch.ops import nmse as nmse_mod
 
     wall_t0 = time.time()
     dev = resolve_device("cuda")
@@ -3243,8 +3335,15 @@ def main():
                    lambda: slot_mod.interpolate_slots_plain(*slot_args),
                    slot_mod.work(*slot_args)),
     ]
+    h_main, e_main, axes_main = captured["nmse"]
+    kernels.append(kernel_row("nmse", "ce5g_torch/csrc/nmse.cu", None, launches["nmse"],
+                              main_errs["nmse"],
+                              lambda: nmse_mod.nmse(h_main, e_main, axes_main),
+                              lambda: nmse_mod.nmse_plain(h_main, e_main, axes_main),
+                              nmse_mod.work(h_main, e_main)))
     shapes = {"hpd_solve": tuple(gram.shape), "interp_fused": tuple(vals.shape),
-              "interp": tuple(slot_args[0].shape) + (slot_args[-1],)}
+              "interp": tuple(slot_args[0].shape) + (slot_args[-1],),
+              "nmse": tuple(h_main.shape)}
     for kern in kernels:
         print(f"{kern['name']}: kernel {kern['ms']:.4f} ms ({kern['ms_min']:.4f}-"
               f"{kern['ms_max']:.4f} over 5 replays of a graph of 20), back-to-back calls "
@@ -3252,7 +3351,7 @@ def main():
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), library "
               f"{kern['library_ms'] if kern['library_ms'] is None else round(kern['library_ms'], 4)} ms "
               f"at {shapes[kern['name']]}")
-    for kern in kernels[1:]:
+    for kern in kernels[1:3]:
         gap = kern["call_ms"] / kern["ms"] - 1.0
         print(f"{kern['name']}: back-to-back calls against graph replay {gap:+.1%} "
               f"({'within' if abs(gap) <= 0.05 else 'beyond'} 5%: the device, not the host, "
@@ -3275,6 +3374,7 @@ def main():
           f"{cuda_ms(lambda: slot_mod.interpolate_slots_plain(*bench_slot))[0]:.4f} ms, bound "
           f"{bench_bound[0]:.4f} ms ({bench_bound[1]})")
     slower_than_replaced(dev)
+    nmse_times(dev)
 
     # pipeline: fresh draws → simulate → estimate → NMSE, host clock
     gen = torch.Generator(device=dev).manual_seed(4)

@@ -22,6 +22,7 @@ from ce5g_torch.ops import _build
 from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as grid_mod
+from ce5g_torch.ops import nmse as nmse_mod
 from ce5g_torch.physics import FrameParams, draw_frames, simulate_batch
 from ce5g_torch.physics.profiles import cached
 from ce5g_torch.physics.simulate import table_for
@@ -103,21 +104,25 @@ def test_timed_entry_spans():
     """The spans of one batch of each benchmarked estimator, with parents."""
     cfg = _cfg()
     for estimator, method in ESTIMATORS:
+        before = profiling.counters.copy()
         with profiling.recording() as spans:
             _step(cfg, estimator, method)
+        moved = profiling.counters - before
         names = [sp.name for sp in spans]
         parent = {sp.name: (spans[sp.parent].name if sp.parent >= 0 else None) for sp in spans}
         assert names[:5] == ["physics.simulate", "physics.pattern", "physics.jakes",
                              "physics.response", "physics.received"]
         assert {parent[n] for n in names[1:5]} == {"physics.simulate"}
         assert parent["physics.simulate"] is None and parent["estimators.estimate"] is None
-        assert names[-1] == "metrics.nmse" and parent["metrics.nmse"] is None
+        assert names[-2:] == ["metrics.nmse", "ops.nmse"] and parent["metrics.nmse"] is None
+        assert parent["ops.nmse"] == "metrics.nmse" and names.count("ops.nmse") == 1
+        assert moved["ops.nmse.plain"] == 1 and profiling.launches("nmse", moved) == 0
         if estimator == "ls":
             kernel = "ops.interp_fused" if method == "linear" else "ops.interp"
-            assert names[5:-1] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel]
+            assert names[5:-2] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel]
             assert parent[kernel] == "ls.interpolate"
         else:
-            assert names[5:-1] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
+            assert names[5:-2] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
                                    "mmse_full.time_prior", "mmse_full.gram", "mmse_full.solve",
                                    "ops.hpd_solve", "ops.hpd_solve", "mmse_full.reconstruct"]
             assert [spans[sp.parent].name for sp in spans if sp.name == "ops.hpd_solve"] == [
@@ -193,10 +198,12 @@ def fake_card(monkeypatch):
     """The kernels' C entry points and the CUDA stream replaced by stand-ins
     that launch nothing, so that each wrapper's ``_launch`` runs on CPU
     tensors."""
-    lib = types.SimpleNamespace(interp_launch=lambda *a: 0, interp_fused_launch=lambda *a: 0)
+    lib = types.SimpleNamespace(interp_launch=lambda *a: 0, interp_fused_launch=lambda *a: 0,
+                                nmse_launch=lambda *a: 0)
     monkeypatch.setattr(hpd_mod, "_launcher", lambda: (lambda *a: 0))
     monkeypatch.setattr(grid_mod, "_lib", lambda: lib)
     monkeypatch.setattr(slot_mod, "_lib", lambda: lib)
+    monkeypatch.setattr(nmse_mod, "_lib", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
@@ -234,6 +241,19 @@ def test_interp_counts_its_route(fake_card, route):
     moved = _moved(lambda: slot_mod._launch(pl, vals, pos, valid, (14, 599), "cubic"))
     assert moved == {f"ops.interp.{route}": 1}
     assert profiling.launches("interp", moved) == 1
+
+
+@pytest.mark.parametrize("route", nmse_mod.ROUTES)
+def test_nmse_counts_its_route(fake_card, route):
+    h = torch.zeros(2, 14, 4, 4, 599, dtype=torch.complex64)
+    e = torch.zeros(2, 4, 14, 599, dtype=torch.complex64).transpose(1, 2)[:, :, :, None, :]
+    e = e.expand(h.shape)
+    axes = None if route == "pairs" else (0,)  # the frame axis alone is not contiguous
+    pl = nmse_mod.plan_for(tuple(h.shape), h.stride(), e.stride(), axes, 528)
+    assert pl.route == route
+    moved = _moved(lambda: nmse_mod._launch(pl, h, e))
+    assert moved == {f"ops.nmse.{route}": 1}
+    assert profiling.launches("nmse", moved) == 1
 
 
 def test_time_rank_counts_each_run():

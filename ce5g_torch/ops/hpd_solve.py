@@ -35,9 +35,10 @@ plain PyTorch (Cholesky plus two triangular solves, mirroring the JAX
 package's ``_xla_solve``). A system that is not positive definite gives
 NaN in both.
 
-Each call runs in the span ``ops.hpd_solve`` and counts
-``ops.hpd_solve.<route>`` for a launch, ``ops.hpd_solve.plain`` on the CPU
-(``utils.profiling``).
+Each call runs in the span ``ops.hpd_solve``; inside it, a launch runs in
+the span ``ops.hpd_solve.<route>`` and counts the counter of that name,
+and on the CPU the plain version runs in ``ops.hpd_solve.plain`` and
+counts it (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -196,7 +197,8 @@ def hpd_solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     with annotate("ops.hpd_solve"):
         if gram.device.type == "cpu":
             counters["ops.hpd_solve.plain"] += 1
-            return hpd_solve_plain(gram, rhs)
+            with annotate("ops.hpd_solve.plain"):
+                return hpd_solve_plain(gram, rhs)
         if gram.device.type != "cuda":
             raise ValueError(f"hpd_solve runs on CPU or CUDA tensors, not {gram.device}")
         return _launch(plan(*rhs.shape[1:]), gram, rhs)
@@ -214,15 +216,17 @@ def _launch(pl: Plan, gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     work_a = work_z = None
     if pl.route == "blocked":
         work_a = torch.empty_like(gram)
-        work_z = torch.empty(b, r, n, dtype=rhs.dtype, device=rhs.device)
-    status = _launcher()(
-        gram.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-        None if work_a is None else work_a.data_ptr(),
-        None if work_z is None else work_z.data_ptr(), b, n, r,
-        *(pl.instance if pl.route == "cluster" else (0, 0, 0)),
-        torch.cuda.current_stream(gram.device).cuda_stream,
-    )
-    counters[f"ops.hpd_solve.{pl.route}"] += 1
+        work_z = rhs.new_empty(b, r, n)
+    name = f"ops.hpd_solve.{pl.route}"
+    with annotate(name):
+        status = _launcher()(
+            gram.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+            None if work_a is None else work_a.data_ptr(),
+            None if work_z is None else work_z.data_ptr(), b, n, r,
+            *(pl.instance if pl.route == "cluster" else (0, 0, 0)),
+            torch.cuda.current_stream(gram.device).cuda_stream,
+        )
+    counters[name] += 1
     if status != 0:
         _build.check(_build.library("hpd_solve"), status, "hpd_solve kernel")
     return out

@@ -7,8 +7,11 @@ samples/s, run_phase3_robust.py:232-234):
   * :func:`annotate` — the port's span, one at each layer boundary of the
     timed entry (``physics.simulate`` and its stages, ``estimators.
     estimate`` and the estimators' stages, ``ops.<kernel>``,
-    ``metrics.nmse``). Off by default: a span then costs one check of a
-    module flag and returns one shared null context. Inside
+    ``metrics.nmse``; inside ``ops.hpd_solve``, ``ops.hpd_solve.<route>``
+    around its kernel's launch, named as the route's counter, and
+    ``ops.hpd_solve.plain`` around the plain version). Off by default:
+    a span then costs one check of a module flag and returns one shared
+    null context. Inside
     :func:`recording` each span keeps, in memory, its name, the index of
     the span that opened it (−1 at the top) and its start and end from
     ``time.time_ns()`` (Unix ns: the clock of a profiler trace's ``ts`` µs

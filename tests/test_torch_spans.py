@@ -124,9 +124,13 @@ def test_timed_entry_spans():
         else:
             assert names[5:-2] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
                                    "mmse_full.time_prior", "mmse_full.gram", "mmse_full.solve",
-                                   "ops.hpd_solve", "ops.hpd_solve", "mmse_full.reconstruct"]
+                                   "ops.hpd_solve", "ops.hpd_solve.plain",
+                                   "ops.hpd_solve", "ops.hpd_solve.plain",
+                                   "mmse_full.reconstruct"]
             assert [spans[sp.parent].name for sp in spans if sp.name == "ops.hpd_solve"] == [
                 "mmse_full.solve"] * 2
+            assert [spans[sp.parent].name for sp in spans
+                    if sp.name == "ops.hpd_solve.plain"] == ["ops.hpd_solve"] * 2
         stages = [sp for sp in spans if sp.parent >= 0 and spans[sp.parent].parent == -1]
         assert all(a.end_ns <= b.start_ns for a, b in zip(stages, stages[1:]))
 
@@ -211,14 +215,31 @@ def fake_card(monkeypatch):
 HPD_ROUTE_SHAPES = {"registers": (45, 4), "cluster": (135, 4), "blocked": (400, 4)}
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on a card, so that ``hpd_solve``
+    takes its launch path under ``fake_card``."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
 @pytest.mark.parametrize("route", hpd_mod.ROUTES)
 def test_hpd_solve_counts_its_route(fake_card, route):
+    """Each launch counts its route and runs in one span of the route's
+    name, under the wrapper's ``ops.hpd_solve``."""
     n, r = HPD_ROUTE_SHAPES[route]
     pl = hpd_mod.plan(n, r)
     assert pl.route == route
     gram = torch.zeros(1, n, n, dtype=torch.complex64)
     rhs = torch.zeros(1, n, r, dtype=torch.complex64)
     assert _moved(lambda: hpd_mod._launch(pl, gram, rhs)) == {f"ops.hpd_solve.{route}": 1}
+    with profiling.recording() as spans:
+        moved = _moved(lambda: hpd_mod.hpd_solve(gram.as_subclass(_OnCard),
+                                                 rhs.as_subclass(_OnCard)))
+    assert moved == {f"ops.hpd_solve.{route}": 1}
+    assert [(sp.name, sp.parent) for sp in spans] == [
+        ("ops.hpd_solve", -1), (f"ops.hpd_solve.{route}", 0)]
 
 
 @pytest.mark.parametrize("route", grid_mod.ROUTES)

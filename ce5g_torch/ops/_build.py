@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNELS = ("hpd_solve", "interp_fused", "interp", "nmse")
+KERNELS = ("hpd_solve", "interp_fused", "interp", "nmse", "pilot_select")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

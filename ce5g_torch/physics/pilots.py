@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.pilot_select import pilot_select
+
 
 class PilotPattern(NamedTuple):
     mask: torch.Tensor  # (B, S, K) float32
@@ -41,39 +43,16 @@ def scattered_pattern(
 
     Keeps the n smallest uniforms (n = int(S·K·density) per frame): 25
     rounds of float32 threshold bisection find the n-th order statistic,
-    then a cumsum rank drops ties past n — the same float32 steps as
-    ``ce5g_tpu.physics.pilots.scattered_pattern`` (:37-77), so equal draws
-    give an equal pattern.
+    then a rank by linear index drops ties past n — the same float32 steps
+    as ``ce5g_tpu.physics.pilots.scattered_pattern`` (:37-77), so equal
+    draws give an equal pattern. ``ops.pilot_select`` runs the rule: one
+    CUDA kernel on the card, its plain PyTorch version on the CPU.
     """
     b, total = u.shape
     p_max = int(total * max_density)
-    dev = u.device
-    n_pilots = num_pilots_for(num_symbols, num_subcarriers, density).to(dev)
+    n_pilots = num_pilots_for(num_symbols, num_subcarriers, density).to(u.device)
     n_pilots = n_pilots.expand(b).contiguous()
-
-    lo = torch.zeros(b, dtype=torch.float32, device=dev)
-    hi = torch.ones(b, dtype=torch.float32, device=dev)
-    for _ in range(25):
-        mid = 0.5 * (lo + hi)
-        above = (u < mid[:, None]).sum(dim=1) >= n_pilots
-        lo, hi = torch.where(above, lo, mid), torch.where(above, mid, hi)
-    pre = u < hi[:, None]
-    rank = torch.cumsum(pre.to(torch.int32), dim=1) - 1  # rank by linear index
-    sel = pre & (rank < n_pilots[:, None])
-    mask = sel.reshape(b, num_symbols, num_subcarriers).to(torch.float32)
-
-    # Compact the selected linear indices into the fixed p_max slot table;
-    # unselected indices all land in the spare slot p_max, cut off below.
-    slots = torch.where(sel, rank, p_max).to(torch.int64)
-    lin_idx = torch.arange(total, dtype=torch.int32, device=dev).expand(b, total)
-    lin = torch.zeros(b, p_max + 1, dtype=torch.int32, device=dev)
-    lin = lin.scatter(1, slots, lin_idx)[:, :p_max]
-    positions = torch.stack(
-        [lin // num_subcarriers, lin % num_subcarriers], dim=-1
-    ).to(torch.int32)
-    valid = (
-        torch.arange(p_max, device=dev)[None, :] < n_pilots[:, None]
-    ).to(torch.float32)
+    mask, positions, valid = pilot_select(u, n_pilots, num_symbols, num_subcarriers, p_max)
     return PilotPattern(mask, positions, valid, n_pilots)
 
 

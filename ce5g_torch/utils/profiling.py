@@ -24,9 +24,10 @@ samples/s, run_phase3_robust.py:232-234):
       - ``ops.hpd_solve.<route>`` (``registers``, ``cluster``,
         ``blocked``), ``ops.interp_fused.<route>`` (``shared``,
         ``global``), ``ops.interp.<route>`` (``frame``, ``tile``),
-        ``ops.nmse.<route>`` (``pairs``, ``strided``): kernel launches by
-        route (an interpolation route, and ``nmse``, may be two CUDA
-        launches); ``ops.<kernel>.plain``: calls on CPU tensors (for
+        ``ops.nmse.<route>`` (``pairs``, ``strided``),
+        ``ops.pilot_select.<route>`` (``block``, ``cluster``, ``global``):
+        kernel launches by route (an interpolation route, and ``nmse``,
+        may be two CUDA launches); ``ops.<kernel>.plain``: calls on CPU tensors (for
         ``nmse`` also any input its kernel does not take), which run the
         plain PyTorch version (:func:`launches` sums a kernel's routes);
       - ``time_rank.computed``: runs of ``estimators.api.auto_time_rank``'s

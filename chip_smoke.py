@@ -4,7 +4,7 @@
     python3 path/to/chip_smoke.py      (from any directory)
 
 Phases, one line each; any failure exits non-zero:
-  1. setup: the card's name and power limit; build the four CUDA kernels;
+  1. setup: the card's name and power limit; build the five CUDA kernels;
   2. the HPD-solve kernel against its plain PyTorch version, on random
      systems and on the hard cases of ce5g_torch.ops.hard_cases;
   3. the grid-interpolation kernel against its plain PyTorch version, at
@@ -37,7 +37,9 @@ Phases, one line each; any failure exits non-zero:
      ``ms``; the interpolation kernels at 1% and 20% pilots by back-to-back
      calls, as their recorded times were taken), the score's kernel
      (``nmse``) at the nr100_4x64 benchmark batch beside its bound and the
-     plain chain, and pipeline frames/s;
+     plain chain, the pilot selection (``pilot_select``) at the batches of
+     the three benchmark configurations beside its bound and its plain
+     version, and pipeline frames/s;
   8. where a batch goes: a torch.profiler trace of three warm batches of
      the pipeline for 'mmse_full', 'ls' and 'ls:cubic' — the ten device
      operations with the most time, the device's idle share of the window
@@ -756,11 +758,13 @@ class capturing:
         import ce5g_torch.estimators.interpolate as interp_est
         import ce5g_torch.estimators.mmse as mmse_est
         import ce5g_torch.ops.nmse as nmse_mod
+        import ce5g_torch.physics.pilots as pilots_mod
 
         self.sites = [(mmse_est, "hpd_solve", "hpd_solve"),
                       (interp_est, "interpolate_grid_fused", "interp_fused"),
                       (interp_est, "interpolate_slots", "interp"),
-                      (nmse_mod, "nmse", "nmse")]
+                      (nmse_mod, "nmse", "nmse"),
+                      (pilots_mod, "pilot_select", "pilot_select")]
         self.args = {}
 
     def __enter__(self):
@@ -978,6 +982,7 @@ def hold_against_plain(path, captured):
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
     from ce5g_torch.ops import nmse as nmse_mod
+    from ce5g_torch.ops import pilot_select as select_mod
 
     errs, parts = {}, []
     if "hpd_solve" in captured:
@@ -1020,6 +1025,14 @@ def hold_against_plain(path, captured):
                      f"relative to float64 {got_rel:.3e} (plain {plain_rel:.3e})")
         fail_unless(got_rel <= 1e-6,
                     f"{path} nmse within 1e-6 of its float64 value ({got_rel:.2e})")
+    if "pilot_select" in captured:
+        u, n, s, k, p_max = captured["pilot_select"]
+        got = select_mod.pilot_select(u, n, s, k, p_max)
+        want = select_mod.pilot_select_plain(u, n, s, k, p_max)
+        errs["pilot_select"] = sum(int((a != b).sum()) for a, b in zip(got, want))
+        parts.append(f"pilot_select {tuple(u.shape)} pilots {int(n.min())}-{int(n.max())} "
+                     f"elements that differ {errs['pilot_select']}")
+        fail_unless(errs["pilot_select"] == 0, f"{path} pilot_select equals its plain version")
     print(f"{path} inputs, kernel vs plain: " + "; ".join(parts))
     return errs
 
@@ -1105,6 +1118,41 @@ def nmse_times(dev):
         fail_unless(rel <= 1e-6, f"nmse at {shape}, {label}, within 1e-6 of float64")
         fail_unless(ms[0] < plain[0], f"nmse at {shape}, {label}, faster than the plain chain")
         del h, e
+        torch.cuda.empty_cache()
+
+
+#: (B, S, K) of the benchmark's configurations: bench_4x4, nr100_4x64,
+#: lte_frame_etu300_4x4
+PILOT_SHAPES = ((256, 14, 599), (64, 14, 3275), (512, 140, 599))
+
+
+def pilot_select_times(dev):
+    """The pilot selection at each benchmark configuration's batch (10%
+    pilots, 15% slots) beside its bound and its plain version (back to
+    back), equal to the plain version and faster than it."""
+    import torch
+    from ce5g_torch.ops import pilot_select as select_mod
+    from ce5g_torch.physics.pilots import num_pilots_for
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for b, s, k in PILOT_SHAPES:
+        u = torch.rand(b, s * k, generator=gen, device=dev)
+        n = num_pilots_for(s, k, 0.1).to(dev).expand(b).contiguous()
+        p_max = int(s * k * 0.15)
+        pl = select_mod.plan(u)
+        got = select_mod.pilot_select(u, n, s, k, p_max)
+        want = select_mod.pilot_select_plain(u, n, s, k, p_max)
+        differ = sum(int((a != c).sum()) for a, c in zip(got, want))
+        ms = graph_ms(lambda: select_mod.pilot_select(u, n, s, k, p_max))
+        plain = cuda_ms(lambda: select_mod.pilot_select_plain(u, n, s, k, p_max))
+        bound_ms, by = bound(*select_mod.work(b, s * k, p_max))
+        print(f"pilot_select at ({b}, {s * k}): kernel {ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), "
+              f"bound {bound_ms:.4f} ms ({by}), {100.0 * bound_ms / ms[0]:.1f}% of it; plain "
+              f"{plain[0]:.4f} ms; route {pl.route}, cluster {pl.cluster}, {pl.threads} threads, "
+              f"grid {pl.grid}; elements that differ from the plain version {differ}")
+        fail_unless(differ == 0, f"pilot_select at ({b}, {s * k}) equals its plain version")
+        fail_unless(ms[0] < plain[0], f"pilot_select at ({b}, {s * k}) faster than its plain version")
+        del u, got, want
         torch.cuda.empty_cache()
 
 
@@ -2202,8 +2250,9 @@ def evaluation_phase(dev, card, serving_results, tune_sets):
               + ", ".join(f"{k} {v}" for k, v in launches.items()))
         fail_unless(all(n > 0 for n in launches.values()),
                     f"every kernel launched on the evaluation path: {launches}")
-        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused"}
-                    and set(cap_regular.args) == set(launches),
+        # (e) draws regular pilots: no scattered selection
+        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused", "pilot_select"}
+                    and set(cap_regular.args) == set(launches) - {"pilot_select"},
                     f"the inputs captured: (a)-(d) {sorted(cap.args)}, (e) {sorted(cap_regular.args)}")
         hold_against_plain("evaluation path (a)-(d)", cap.args)
         hold_against_plain("comb and block path", cap_regular.args)
@@ -3282,6 +3331,7 @@ def main():
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
     from ce5g_torch.ops import nmse as nmse_mod
+    from ce5g_torch.ops import pilot_select as select_mod
 
     wall_t0 = time.time()
     dev = resolve_device("cuda")
@@ -3341,9 +3391,16 @@ def main():
                               lambda: nmse_mod.nmse(h_main, e_main, axes_main),
                               lambda: nmse_mod.nmse_plain(h_main, e_main, axes_main),
                               nmse_mod.work(h_main, e_main)))
+    select_args = captured["pilot_select"]
+    u_main, _, _, _, p_main = select_args
+    kernels.append(kernel_row("pilot_select", "ce5g_torch/csrc/pilot_select.cu", None,
+                              launches["pilot_select"], main_errs["pilot_select"],
+                              lambda: select_mod.pilot_select(*select_args),
+                              lambda: select_mod.pilot_select_plain(*select_args),
+                              select_mod.work(*u_main.shape, p_main)))
     shapes = {"hpd_solve": tuple(gram.shape), "interp_fused": tuple(vals.shape),
               "interp": tuple(slot_args[0].shape) + (slot_args[-1],),
-              "nmse": tuple(h_main.shape)}
+              "nmse": tuple(h_main.shape), "pilot_select": tuple(u_main.shape)}
     for kern in kernels:
         print(f"{kern['name']}: kernel {kern['ms']:.4f} ms ({kern['ms_min']:.4f}-"
               f"{kern['ms_max']:.4f} over 5 replays of a graph of 20), back-to-back calls "
@@ -3375,6 +3432,7 @@ def main():
           f"{bench_bound[0]:.4f} ms ({bench_bound[1]})")
     slower_than_replaced(dev)
     nmse_times(dev)
+    pilot_select_times(dev)
 
     # pipeline: fresh draws → simulate → estimate → NMSE, host clock
     gen = torch.Generator(device=dev).manual_seed(4)

@@ -23,6 +23,7 @@ from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as grid_mod
 from ce5g_torch.ops import nmse as nmse_mod
+from ce5g_torch.ops import pilot_select as select_mod
 from ce5g_torch.physics import FrameParams, draw_frames, simulate_batch
 from ce5g_torch.physics.profiles import cached
 from ce5g_torch.physics.simulate import table_for
@@ -110,19 +111,22 @@ def test_timed_entry_spans():
         moved = profiling.counters - before
         names = [sp.name for sp in spans]
         parent = {sp.name: (spans[sp.parent].name if sp.parent >= 0 else None) for sp in spans}
-        assert names[:5] == ["physics.simulate", "physics.pattern", "physics.jakes",
-                             "physics.response", "physics.received"]
-        assert {parent[n] for n in names[1:5]} == {"physics.simulate"}
+        assert names[:6] == ["physics.simulate", "physics.pattern", "ops.pilot_select",
+                             "physics.jakes", "physics.response", "physics.received"]
+        assert {parent[n] for n in names[1:2] + names[3:6]} == {"physics.simulate"}
+        assert parent["ops.pilot_select"] == "physics.pattern"
+        assert names.count("ops.pilot_select") == 1
+        assert moved["ops.pilot_select.plain"] == 1 and profiling.launches("pilot_select", moved) == 0
         assert parent["physics.simulate"] is None and parent["estimators.estimate"] is None
         assert names[-2:] == ["metrics.nmse", "ops.nmse"] and parent["metrics.nmse"] is None
         assert parent["ops.nmse"] == "metrics.nmse" and names.count("ops.nmse") == 1
         assert moved["ops.nmse.plain"] == 1 and profiling.launches("nmse", moved) == 0
         if estimator == "ls":
             kernel = "ops.interp_fused" if method == "linear" else "ops.interp"
-            assert names[5:-2] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel]
+            assert names[6:-2] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel]
             assert parent[kernel] == "ls.interpolate"
         else:
-            assert names[5:-2] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
+            assert names[6:-2] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
                                    "mmse_full.time_prior", "mmse_full.gram", "mmse_full.solve",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
@@ -208,6 +212,8 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(grid_mod, "_lib", lambda: lib)
     monkeypatch.setattr(slot_mod, "_lib", lambda: lib)
     monkeypatch.setattr(nmse_mod, "_lib", lambda: lib)
+    monkeypatch.setattr(select_mod, "_launcher", lambda: (lambda *a: 0))
+    monkeypatch.setattr(select_mod, "_SMS", {0: 132})
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
@@ -275,6 +281,48 @@ def test_nmse_counts_its_route(fake_card, route):
     moved = _moved(lambda: nmse_mod._launch(pl, h, e))
     assert moved == {f"ops.nmse.{route}": 1}
     assert profiling.launches("nmse", moved) == 1
+
+
+SELECT_ROUTE_SHAPES = {"block": (256, 14, 599), "cluster": (2, 140, 599),
+                      "global": (1, 2, (select_mod.MAX_RESIDENT + 1) // 2)}
+
+
+@pytest.mark.parametrize("route", select_mod.ROUTES)
+def test_pilot_select_counts_its_route(fake_card, route):
+    """Each launch counts its route, one launch, in one ``ops.pilot_select``
+    span."""
+    b, s, k = SELECT_ROUTE_SHAPES[route]
+    u = torch.zeros(b, s * k)
+    n = torch.full((b,), s * k // 10, dtype=torch.int32)
+    assert select_mod.plan_for(b, s * k, 132).route == route
+    with profiling.recording() as spans:
+        moved = _moved(lambda: select_mod.pilot_select(u.as_subclass(_OnCard),
+                                                       n.as_subclass(_OnCard), s, k, s * k // 8))
+    assert moved == {f"ops.pilot_select.{route}": 1}
+    assert profiling.launches("pilot_select", moved) == 1
+    assert [(sp.name, sp.parent) for sp in spans] == [("ops.pilot_select", -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator,method", ESTIMATORS)
+def test_timed_entry_launches_the_pilot_kernel_once(estimator, method):
+    """On the card a batch of the timed entry selects its pilots in one
+    launch, inside ``physics.pattern``, and never runs the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cfg = _cfg()
+    draws, params = _inputs(cfg)
+    before = profiling.counters.copy()
+    with profiling.recording() as spans:
+        frames = simulate_batch(draws, params, cfg=cfg, device="cuda")
+        estimate_batch(frames, cfg=cfg, estimator=estimator, method=method, device="cuda")
+        torch.cuda.synchronize()
+    moved = profiling.counters - before
+    selected = {key: n for key, n in moved.items() if key.startswith("ops.pilot_select.")}
+    assert selected == {"ops.pilot_select.block": 1}  # 3 frames of 6 × 39: one block each
+    assert profiling.launches("pilot_select", moved) == 1
+    assert [spans[sp.parent].name for sp in spans if sp.name == "ops.pilot_select"] == [
+        "physics.pattern"]
 
 
 def test_time_rank_counts_each_run():

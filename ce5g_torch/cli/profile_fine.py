@@ -9,8 +9,10 @@ end. Rows:
   * pilots (:58-119): the uniforms alone; the 25-round threshold
     bisection run frame by frame (a loop over frames, each with its own
     scalar threshold), without and with the cumsum rank that drops ties;
-    the same bisection batched over frames, the form
-    ``physics.pilots.scattered_pattern`` uses (pilots.py:43-60);
+    the same bisection batched over frames,
+    ``ops.pilot_select.threshold_select``, the plain version's selection
+    (on the card ``physics.pilots.scattered_pattern`` launches the
+    ``pilot_select`` kernel instead);
   * Jakes (:121-173): the gains by direct cos/sin at each symbol time, and
     by a recurrence: the oscillator's phasor times powers of its one-symbol
     rotation, built from binary powers;
@@ -32,6 +34,7 @@ import math
 
 import torch
 
+from ..ops.pilot_select import ROUNDS, threshold_select
 from ..physics import MAX_PATHS, PROFILE_INDEX, table_for
 from ..physics.pilots import num_pilots_for
 from ..physics.simulate import table_tensors
@@ -41,7 +44,6 @@ from .profile_bench import stages
 from .profile_solve import chol_solve
 
 BATCH, ITERS = 256, 4
-BISECT_ROUNDS = 25
 PILOT_DENSITY = 0.1
 CHOL_R = 72
 SWEEP = (512, 1024)  # batches of the full-pipeline rows
@@ -57,7 +59,7 @@ def bisect_per_frame(u: torch.Tensor, n: int, rank: bool = True) -> torch.Tensor
     for row in u:
         lo = torch.zeros((), device=u.device)
         hi = torch.ones((), device=u.device)
-        for _ in range(BISECT_ROUNDS):
+        for _ in range(ROUNDS):
             mid = 0.5 * (lo + hi)
             above = (row < mid).sum() >= n
             lo, hi = torch.where(above, lo, mid), torch.where(above, mid, hi)
@@ -67,20 +69,6 @@ def bisect_per_frame(u: torch.Tensor, n: int, rank: bool = True) -> torch.Tensor
             continue
         out.append(pre & (torch.cumsum(pre.to(torch.int32), 0) - 1 < n))
     return torch.stack(out)
-
-
-def bisect_batched(u: torch.Tensor, n: int) -> torch.Tensor:
-    """The same selection with every frame in one loop of 25 rounds, one
-    (B, total) row sum a round → (B, total) bool."""
-    b = u.shape[0]
-    lo = torch.zeros(b, device=u.device)
-    hi = torch.ones(b, device=u.device)
-    for _ in range(BISECT_ROUNDS):
-        mid = 0.5 * (lo + hi)
-        above = (u < mid[:, None]).sum(1) >= n
-        lo, hi = torch.where(above, lo, mid), torch.where(above, mid, hi)
-    pre = u < hi[:, None]
-    return pre & (torch.cumsum(pre.to(torch.int32), 1) - 1 < n)
 
 
 def jakes_direct(angles, phases, doppler_hz: float, num_symbols: int,
@@ -132,6 +120,7 @@ def fine_rows(cfg, b: int, gen: torch.Generator, dev):
     s, k = ofdm.num_symbols, ofdm.num_used_subcarriers
     total = s * k
     n_pil = int(num_pilots_for(s, k, PILOT_DENSITY))
+    n_batch = torch.full((b,), n_pil, dtype=torch.int32, device=dev)
     dt_sym = ofdm.samples_per_symbol / ofdm.sampling_rate
     shape = (b, MAX_PATHS, mimo.num_rx, mimo.num_tx, cfg.channel.num_oscillators)
     fm = table_tensors(table_for(cfg), cfg, dev)[1][PROFILE_INDEX["ETU"]]
@@ -158,7 +147,8 @@ def fine_rows(cfg, b: int, gen: torch.Generator, dev):
         "pilot: +bisect25 (per-frame)":
             lambda: bisect_per_frame(uniforms(b, total), n_pil, rank=False).sum().float(),
         "pilot: +bisect+cumsum": lambda: bisect_per_frame(uniforms(b, total), n_pil).sum().float(),
-        "pilot: batched bisect+cumsum": lambda: bisect_batched(uniforms(b, total), n_pil).sum().float(),
+        "pilot: batched bisect+cumsum":
+            lambda: threshold_select(uniforms(b, total), n_batch)[0].sum().float(),
         "jakes: direct trig":
             lambda: jakes_direct(*oscillators(), 200.0, s, dt_sym).abs().pow(2).sum(),
         "jakes: recurrence (binary pow)":

@@ -3,7 +3,6 @@ from .interpolate import interpolate_grid, normalized_conv_interpolate
 from .ls import ls_at_pilots, ls_estimate
 from .mmse import (
     WienerPrior,
-    bessel_j0,
     build_wiener_prior,
     estimate_covariance,
     mmse_diag_at_pilots,
@@ -12,7 +11,8 @@ from .mmse import (
     wiener_reconstruct,
     wiener_solve,
 )
-from .api import auto_time_rank, estimate_batch, estimate_frame
+from .time_prior import auto_time_rank, bessel_j0
+from .api import estimate_batch, estimate_frame
 
 __all__ = [
     "equalize_channel",

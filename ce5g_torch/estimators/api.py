@@ -8,57 +8,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..config import ExperimentConfig
 from ..device import resolve_device
 from ..physics.profiles import ProfileTable, cached
 from ..physics.simulate import Frame, FrameParams, table_for, table_tensors
-from ..utils.profiling import annotate, counters
+from ..utils.profiling import annotate
 from .blind import device_tables_for, estimate_priors
 from .ls import ls_estimate
 from .mmse import build_f_tables, mmse_diag_estimate, mmse_full_estimate
-
-
-def _bessel_j0_np(x):
-    """NumPy J0 (A&S 9.4.1/9.4.3, |err| < 1e-7) for host-side rank sizing."""
-    x = np.abs(np.asarray(x, np.float64))
-    t = (x / 3.0) ** 2
-    small = 1.0 + t * (-2.2499997 + t * (1.2656208 + t * (-0.3163866
-        + t * (0.0444479 + t * (-0.0039444 + t * 0.0002100)))))
-    xs = np.maximum(x, 3.0)
-    u = 3.0 / xs
-    f0 = (0.79788456 + u * (-0.00000077 + u * (-0.00552740 + u * (-0.00009512
-        + u * (0.00137237 + u * (-0.00072805 + u * 0.00014476))))))
-    th0 = (xs - 0.78539816 + u * (-0.04166397 + u * (-0.00003954
-        + u * (0.00262573 + u * (-0.00054125 + u * (-0.00029333
-        + u * 0.00013558))))))
-    large = f0 * np.cos(th0) / np.sqrt(xs)
-    return np.where(x <= 3.0, small, large)
-
-
-def auto_time_rank(cfg: ExperimentConfig) -> Optional[int]:
-    """Legendre-projection rank of the mmse_full time prior: the smallest
-    m whose projection reconstructs the worst-case (largest configured
-    Doppler) R_t within 1e-5 relative Frobenius error — m = 5 for
-    fd ≤ 200 Hz and m = 8 for fd ≤ 500 Hz at the default numerology.
-    None (full rank) when no m < S reaches the tolerance. Each call counts
-    ``time_rank.computed`` (``utils.profiling``)."""
-    counters["time_rank.computed"] += 1
-    s = cfg.ofdm.num_symbols
-    fd_max = max(cfg.channel.doppler_hz)
-    ds = np.arange(s, dtype=np.float64)
-    tau = 2.0 * np.pi * fd_max * (ds[:, None] - ds[None, :]) * cfg.ofdm.symbol_duration
-    rt = _bessel_j0_np(tau)
-    x = np.linspace(-1.0, 1.0, s)
-    norm = np.linalg.norm(rt)
-    for m in range(2, s):
-        q, _ = np.linalg.qr(np.polynomial.legendre.legvander(x, m - 1))
-        rec = q @ (q.T @ rt @ q) @ q.T
-        if np.linalg.norm(rec - rt) <= 1e-5 * norm:
-            return m
-    return None
+from .time_prior import auto_time_rank
 
 
 def _to_device(frames: Frame, dev: torch.device) -> Frame:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..physics.profiles import ProfileTable, cached
+from .time_prior import legendre_basis, time_correlation
 
 _EPS = 1e-12
 
@@ -62,18 +63,10 @@ class PriorEstimate(NamedTuple):
     w_tap: torch.Tensor  # (B, D) per-frame Wiener prior tap powers (blended)
 
 
-def _legendre(s: int, m: int) -> np.ndarray:
-    x = np.linspace(-1.0, 1.0, s)
-    q, _ = np.linalg.qr(np.polynomial.legendre.legvander(x, m - 1))
-    return q.astype(np.float32)
-
-
 def build_blind_tables(cfg, table: ProfileTable, time_rank: int = 5,
                        n_fd: int = 48) -> BlindTables:
     """The static dictionary and template tables for ``cfg``; ``table`` is
     the profile table of the same numerology."""
-    from .api import _bessel_j0_np
-
     s = cfg.ofdm.num_symbols
     valid = table.path_valid > 0
     delays = np.unique(table.delay_samples[valid]).astype(np.int32)  # (D,)
@@ -94,15 +87,14 @@ def build_blind_tables(cfg, table: ProfileTable, time_rank: int = 5,
                 w_profile[ci, slot] += w_path[ci, pi]
     p_ch = w_profile.sum(axis=1).astype(np.float32)
 
-    q = _legendre(s, time_rank)
+    q = legendre_basis(s, time_rank)
 
     fd_max = 1.5 * float(max(cfg.channel.doppler_hz))
     fd_grid = np.geomspace(2.0, max(fd_max, 10.0), n_fd).astype(np.float32)
-    ds = np.arange(s, dtype=np.float64)
+    rt = time_correlation(torch.from_numpy(fd_grid).double(), s, cfg.ofdm.symbol_duration).numpy()
     lam = np.zeros((n_fd, time_rank), np.float32)
-    for i, fd in enumerate(fd_grid):
-        rt = _bessel_j0_np(2.0 * np.pi * fd * (ds[:, None] - ds[None, :]) * cfg.ofdm.symbol_duration)
-        lam[i] = np.einsum("sm,st,tm->m", q, rt, q).astype(np.float32)
+    for i in range(n_fd):
+        lam[i] = np.einsum("sm,st,tm->m", q, rt[i], q).astype(np.float32)
     return BlindTables(f_dict, delays, q, w_profile, p_ch, fd_grid, lam)
 
 

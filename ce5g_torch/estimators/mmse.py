@@ -43,7 +43,6 @@ Precision: the entry points pin float32 matmuls to full precision
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -55,47 +54,7 @@ from ..utils.complexify import packed_complex_matmul
 from ..utils.profiling import annotate
 from .interpolate import interpolate, interpolate_grid
 from .ls import ls_at_pilots, masked_ls_grid
-
-
-def bessel_j0(x: torch.Tensor) -> torch.Tensor:
-    """J0 via the Abramowitz & Stegun 9.4.1 / 9.4.3 rational approximations
-    (|err| < 1e-7), branch-free, valid for all real x; float32, or float64
-    for a float64 x."""
-    x = x.to(torch.promote_types(x.dtype, torch.float32)).abs()
-    # |x| <= 3
-    t = (x / 3.0) ** 2
-    small = (
-        1.0
-        + t * (-2.2499997 + t * (1.2656208 + t * (-0.3163866
-        + t * (0.0444479 + t * (-0.0039444 + t * 0.0002100)))))
-    )
-    # |x| > 3
-    xs = x.clamp(min=3.0)
-    u = 3.0 / xs
-    f0 = (
-        0.79788456
-        + u * (-0.00000077 + u * (-0.00552740 + u * (-0.00009512
-        + u * (0.00137237 + u * (-0.00072805 + u * 0.00014476)))))
-    )
-    th0 = (
-        xs - 0.78539816
-        + u * (-0.04166397 + u * (-0.00003954 + u * (0.00262573
-        + u * (-0.00054125 + u * (-0.00029333 + u * 0.00013558)))))
-    )
-    large = f0 * torch.cos(th0) / torch.sqrt(xs)
-    return torch.where(x <= 3.0, small, large)
-
-
-@functools.lru_cache(maxsize=32)
-def _legendre_basis_np(s: int, m: int) -> np.ndarray:
-    x = np.linspace(-1.0, 1.0, s)
-    q, _ = np.linalg.qr(np.polynomial.legendre.legvander(x, m - 1))
-    return q.astype(np.float32)
-
-
-def _legendre_basis(s: int, m: int, device) -> torch.Tensor:
-    """Static orthonormal degree-(m−1) Legendre basis over s symbols: (s, m)."""
-    return torch.as_tensor(_legendre_basis_np(s, m), device=device)
+from .time_prior import legendre_basis, time_correlation
 
 
 def mmse_diag_at_pilots(h_ls, valid, snr_db):
@@ -165,9 +124,8 @@ def build_wiener_prior(freq_matrix, amp, doppler_hz, symbol_duration: float,
     Φ and ``u_scaled`` may differ from the JAX package's column by column;
     ΦΦᴴ and U·λ·Uᵀ, and so every result below, do not."""
     w_path = 0.5 * amp.to(torch.float32) ** 2  # Jakes E|h|² = ½
-    ds = torch.arange(num_symbols, dtype=torch.float32, device=amp.device)
     fd = torch.as_tensor(doppler_hz, dtype=torch.float32, device=amp.device)
-    rt = bessel_j0(2.0 * math.pi * fd * (ds[:, None] - ds[None, :]) * symbol_duration)
+    rt = time_correlation(fd, num_symbols, symbol_duration)
     lam, u = torch.linalg.eigh(rt)  # ascending
     u_scaled = u * torch.sqrt(lam.clamp(min=0.0))[None, :]  # (S, S)
 
@@ -345,12 +303,9 @@ def mmse_full_estimate(
     # float32).
     with annotate("mmse_full.time_prior"):
         fd = torch.as_tensor(doppler_hz, dtype=real, device=dev)
-        ds = torch.arange(s, dtype=real, device=dev)
-        rt = bessel_j0(
-            (2.0 * math.pi * fd)[:, None, None] * (ds[:, None] - ds[None, :]) * symbol_duration
-        )  # (B, S, S)
+        rt = time_correlation(fd, s, symbol_duration)  # (B, S, S)
         if time_rank is not None and time_rank < s:
-            q = _legendre_basis(s, time_rank, dev).to(real)  # (S, m) static
+            q = torch.as_tensor(legendre_basis(s, time_rank), device=dev).to(real)  # (S, m)
             bm = q.T @ (rt @ q)  # (B, m, m)
             ridge = 1e-4 * (bm.diagonal(dim1=-2, dim2=-1).sum(-1) / time_rank) + 1e-6
             eye = torch.eye(time_rank, dtype=real, device=dev)

@@ -10,6 +10,11 @@ and an unchanged one loads in milliseconds. The library is loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds, not minutes.
 A missing ``nvcc`` or a failed build raises; there is no fallback. Each
 library loaded counts ``kernels.loaded`` (``utils.profiling``).
+
+Every kernel wrapper goes through one seam: :func:`launch` and :func:`call`
+bind a C entry point on its first call and check its status on every
+call, and :func:`run` is the device rule (the plain version on the CPU,
+the kernel on CUDA).
 """
 from __future__ import annotations
 
@@ -20,9 +25,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple, TypeVar
 
-from ..utils.profiling import counters
+import torch
+
+from ..utils.profiling import annotate, counters
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,7 +41,9 @@ NVCC_FLAGS = [
 KERNELS = ("hpd_solve", "interp_fused", "interp", "nmse", "pilot_select")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], Callable] = {}  # (kernel, symbol) → bound C function
 _lock = threading.Lock()
+_T = TypeVar("_T")
 
 
 def _nvcc() -> str:
@@ -92,10 +101,57 @@ def library(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def check(lib: ctypes.CDLL, status: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code. Every
-    library exports ``ce5g_error_string`` (cudaGetErrorString)."""
+def _bind(kernel: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> Callable:
+    """``symbol`` of ``kernel``'s library, its argument and result types set
+    once a process (the cache is keyed by both: every library exports
+    ``ce5g_error_string``)."""
+    key = (kernel, symbol)
+    fn = _bound.get(key)
+    if fn is None:
+        lib = library(kernel)
+        with _lock:
+            fn = _bound.get(key)
+            if fn is None:
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = list(argtypes), restype
+                _bound[key] = fn
+    return fn
+
+
+def call(kernel: str, symbol: str, argtypes: Sequence, *args) -> None:
+    """Call ``symbol`` of ``kernel``'s library, a C function that returns a
+    CUDA error code. The library is built, loaded and bound (the argument
+    types set once) on the first call, not at import. A status that is not
+    zero raises RuntimeError naming the kernel and the CUDA error string
+    (every library exports ``ce5g_error_string``)."""
+    status = _bind(kernel, symbol, argtypes)(*args)
     if status != 0:
-        fn = lib.ce5g_error_string
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"{what}: CUDA error {status} ({fn(status).decode()})")
+        what = _bind(kernel, "ce5g_error_string", (ctypes.c_int,), ctypes.c_char_p)(status)
+        raise RuntimeError(f"{kernel} kernel: CUDA error {status} ({what.decode()})")
+
+
+def launch(kernel: str, route: str, device: torch.device, argtypes: Sequence, *args) -> None:
+    """One launch through ``<kernel>_launch`` by route ``route``, on
+    ``device``'s current stream (the entry's last argument), in the span
+    ``ops.<kernel>.<route>``, which counts it."""
+    name = f"ops.{kernel}.{route}"
+    with annotate(name):
+        call(kernel, f"{kernel}_launch", argtypes, *args,
+             torch.cuda.current_stream(device).cuda_stream)
+    counters[name] += 1
+
+
+def run(kernel: str, device: torch.device, plain: Callable[[], _T], card: Callable[[], _T]) -> _T:
+    """The device rule of every kernel wrapper, in the span ``ops.<kernel>``:
+    on the CPU ``plain()`` in the span ``ops.<kernel>.plain``, which counts
+    it; on CUDA ``card()``, which launches the kernel; on any other device
+    ValueError."""
+    with annotate(f"ops.{kernel}"):
+        if device.type == "cpu":
+            name = f"ops.{kernel}.plain"
+            counters[name] += 1
+            with annotate(name):
+                return plain()
+        if device.type != "cuda":
+            raise ValueError(f"{kernel} runs on CPU or CUDA tensors, not {device}")
+        return card()

@@ -38,7 +38,7 @@ NaN in both.
 Each call runs in the span ``ops.hpd_solve``; inside it, a launch runs in
 the span ``ops.hpd_solve.<route>`` and counts the counter of that name,
 and on the CPU the plain version runs in ``ops.hpd_solve.plain`` and
-counts it (``utils.profiling``).
+counts it (``_build.run``, ``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -49,7 +49,6 @@ from typing import Tuple
 
 import torch
 
-from ..utils.profiling import annotate, counters
 from . import _build
 
 #: the kernel's routes (see the module note)
@@ -160,19 +159,7 @@ def hpd_solve_plain(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.full_like(x, float("nan")), x)
 
 
-_entry = None
-
-
-def _launcher():
-    """The C entry point, built and bound on first use."""
-    global _entry
-    if _entry is None:
-        fn = _build.library("hpd_solve").hpd_solve_launch
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
-        fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def hpd_solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -194,14 +181,8 @@ def hpd_solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         )
     if gram.device != rhs.device:
         raise ValueError(f"gram on {gram.device} but rhs on {rhs.device}")
-    with annotate("ops.hpd_solve"):
-        if gram.device.type == "cpu":
-            counters["ops.hpd_solve.plain"] += 1
-            with annotate("ops.hpd_solve.plain"):
-                return hpd_solve_plain(gram, rhs)
-        if gram.device.type != "cuda":
-            raise ValueError(f"hpd_solve runs on CPU or CUDA tensors, not {gram.device}")
-        return _launch(plan(*rhs.shape[1:]), gram, rhs)
+    return _build.run("hpd_solve", gram.device, lambda: hpd_solve_plain(gram, rhs),
+                      lambda: _launch(plan(*rhs.shape[1:]), gram, rhs))
 
 
 def _launch(pl: Plan, gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -217,18 +198,12 @@ def _launch(pl: Plan, gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if pl.route == "blocked":
         work_a = torch.empty_like(gram)
         work_z = rhs.new_empty(b, r, n)
-    name = f"ops.hpd_solve.{pl.route}"
-    with annotate(name):
-        status = _launcher()(
-            gram.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-            None if work_a is None else work_a.data_ptr(),
-            None if work_z is None else work_z.data_ptr(), b, n, r,
-            *(pl.instance if pl.route == "cluster" else (0, 0, 0)),
-            torch.cuda.current_stream(gram.device).cuda_stream,
-        )
-    counters[name] += 1
-    if status != 0:
-        _build.check(_build.library("hpd_solve"), status, "hpd_solve kernel")
+    _build.launch(
+        "hpd_solve", pl.route, gram.device, _ARGTYPES, gram.data_ptr(), rhs.data_ptr(),
+        out.data_ptr(), None if work_a is None else work_a.data_ptr(),
+        None if work_z is None else work_z.data_ptr(), b, n, r,
+        *(pl.instance if pl.route == "cluster" else (0, 0, 0)),
+    )
     return out
 
 

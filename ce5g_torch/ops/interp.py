@@ -36,10 +36,10 @@ scratch, and a block per tile of columns stages just the sorted pilots
 its columns' windows reach, four antennas at a time. The squared
 distances are float32, exact while S² + K² ≤ 2²⁴ (S, K ≤ 4096).
 
-Each call runs in the span ``ops.interp`` and counts
-``ops.interp.<route>`` for a wrapper call that launched the kernel (one
-or two CUDA launches, by route), ``ops.interp.plain`` on the CPU
-(``utils.profiling``).
+Each call runs in the span ``ops.interp``; inside it, a wrapper call that
+launched the kernel (one or two CUDA launches, by route) runs in the span
+``ops.interp.<route>`` and the plain version in ``ops.interp.plain``, each
+counting the counter of its name (``_build.run``, ``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -49,7 +49,6 @@ from typing import Tuple
 
 import torch
 
-from ..utils.profiling import annotate, counters
 from . import _build
 
 _CANDIDATES = 128
@@ -223,13 +222,7 @@ def interpolate_slots_plain(pilot_values: torch.Tensor, positions: torch.Tensor,
     return torch.complex(apply(v_cand.real), apply(v_cand.imag))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("interp")
-    fn = lib.interp_launch
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 11 + (ctypes.c_void_p,)
 
 
 def interpolate_slots(pilot_values: torch.Tensor, positions: torch.Tensor,
@@ -260,18 +253,16 @@ def interpolate_slots(pilot_values: torch.Tensor, positions: torch.Tensor,
         raise ValueError(
             f"values on {dev}, positions on {positions.device}, valid on {valid.device}"
         )
-    with annotate("ops.interp"):
-        if dev.type == "cpu":
-            counters["ops.interp.plain"] += 1
-            return interpolate_slots_plain(pilot_values, positions, valid.to(torch.float32),
-                                           grid_shape, method)
-        if dev.type != "cuda":
-            raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {dev}")
+
+    def card():
         if pilot_values.dtype != torch.complex64:
             raise TypeError(f"interpolation kernel takes complex64, got {pilot_values.dtype}")
         if p == 0:
             return torch.zeros(b, r, s, k, dtype=torch.complex64, device=dev)
         return _launch(plan(r, p, s, k), pilot_values, positions, valid, grid_shape, method)
+
+    return _build.run("interp", dev, lambda: interpolate_slots_plain(
+        pilot_values, positions, valid.to(torch.float32), grid_shape, method), card)
 
 
 def _launch(pl: Plan, pilot_values, positions, valid, grid_shape, method):
@@ -288,15 +279,12 @@ def _launch(pl: Plan, pilot_values, positions, valid, grid_shape, method):
     if pl.route == "tile":
         order = torch.empty(b, p, dtype=torch.int32, device=dev)
         starts = torch.empty(b, k + 1, dtype=torch.int32, device=dev)
-    lib = _lib()
-    status = lib.interp_launch(
-        vals.data_ptr(), pos.data_ptr(), ok.data_ptr(), out.data_ptr(),
-        None if order is None else order.data_ptr(), None if starts is None else starts.data_ptr(),
-        b, r, p, s, k, _METHODS.index(method), pl.tile, pl.tiles, pl.cap, pl.rc, pl.smem,
-        torch.cuda.current_stream(dev).cuda_stream,
+    _build.launch(
+        "interp", pl.route, dev, _ARGTYPES, vals.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+        out.data_ptr(), None if order is None else order.data_ptr(),
+        None if starts is None else starts.data_ptr(), b, r, p, s, k, _METHODS.index(method),
+        pl.tile, pl.tiles, pl.cap, pl.rc, pl.smem,
     )
-    counters[f"ops.interp.{pl.route}"] += 1
-    _build.check(lib, status, "interp kernel")
     return out
 
 

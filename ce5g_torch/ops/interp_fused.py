@@ -26,10 +26,11 @@ tile's candidates in shared memory where they fit ('shared'), and else
 writes the candidates to a device scratch by a first kernel ('global').
 K ≤ 32767 (a column is a 16-bit integer).
 
-Each call runs in the span ``ops.interp_fused`` and counts
-``ops.interp_fused.<route>`` for a wrapper call that launched the kernel
-(one or two CUDA launches, by route), ``ops.interp_fused.plain`` on the
-CPU (``utils.profiling``).
+Each call runs in the span ``ops.interp_fused``; inside it, a wrapper call
+that launched the kernel (one or two CUDA launches, by route) runs in the
+span ``ops.interp_fused.<route>`` and the plain version in
+``ops.interp_fused.plain``, each counting the counter of its name
+(``_build.run``, ``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -39,7 +40,6 @@ from typing import Tuple
 
 import torch
 
-from ..utils.profiling import annotate, counters
 from . import _build
 
 #: shared memory a block may use on the H100
@@ -180,13 +180,7 @@ def interpolate_grid_plain(value_grid: torch.Tensor, mask: torch.Tensor, method:
     return torch.complex(apply(src.real), apply(src.imag))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("interp_fused")
-    fn = lib.interp_fused_launch
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
 def interpolate_grid_fused(value_grid: torch.Tensor, mask: torch.Tensor, method: str = "linear"):
@@ -209,15 +203,14 @@ def interpolate_grid_fused(value_grid: torch.Tensor, mask: torch.Tensor, method:
         )
     if mask.device != value_grid.device:
         raise ValueError(f"mask on {mask.device} but values on {value_grid.device}")
-    with annotate("ops.interp_fused"):
-        if value_grid.device.type == "cpu":
-            counters["ops.interp_fused.plain"] += 1
-            return interpolate_grid_plain(value_grid, mask.to(torch.float32), method)
-        if value_grid.device.type != "cuda":
-            raise ValueError(f"interpolation runs on CPU or CUDA tensors, not {value_grid.device}")
+
+    def card():
         if value_grid.dtype != torch.complex64:
             raise TypeError(f"interpolation kernel takes complex64, got {value_grid.dtype}")
         return _launch(plan(r, s, k), value_grid, mask, method)
+
+    return _build.run("interp_fused", value_grid.device, lambda: interpolate_grid_plain(
+        value_grid, mask.to(torch.float32), method), card)
 
 
 def _launch(pl: Plan, value_grid, mask, method):
@@ -228,14 +221,11 @@ def _launch(pl: Plan, value_grid, mask, method):
     out = torch.empty_like(vals)
     cand = (torch.empty(b, s, k, 4, dtype=torch.int16, device=vals.device)
             if pl.route == "global" else None)
-    lib = _lib()
-    status = lib.interp_fused_launch(
-        m.data_ptr(), vals.data_ptr(), out.data_ptr(), None if cand is None else cand.data_ptr(),
-        b, r, s, k, int(method == "linear"), pl.tile, pl.tiles, pl.smem,
-        torch.cuda.current_stream(vals.device).cuda_stream,
+    _build.launch(
+        "interp_fused", pl.route, vals.device, _ARGTYPES, m.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), None if cand is None else cand.data_ptr(), b, r, s, k,
+        int(method == "linear"), pl.tile, pl.tiles, pl.smem,
     )
-    counters[f"ops.interp_fused.{pl.route}"] += 1
-    _build.check(lib, status, "interp_fused kernel")
     return out
 
 

@@ -26,10 +26,11 @@ gradient to record and Ĥ broadcastable to H's shape on H's card, and
 raises on any other CUDA input; CPU tensors run :func:`nmse_plain`, the
 expression the score had before.
 
-Each call runs in the span ``ops.nmse`` and counts ``ops.nmse.<route>``
-(``pairs``: unit inner strides; ``strided``: any other) for a call that
-launched the kernel, ``ops.nmse.plain`` for one that ran the plain
-expression (``utils.profiling``).
+Each call runs in the span ``ops.nmse``; inside it, a call that launched
+the kernel runs in the span ``ops.nmse.<route>`` (``pairs``: unit inner
+strides; ``strided``: any other) and the plain expression in
+``ops.nmse.plain``, each counting the counter of its name (``_build.run``,
+``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -42,7 +43,6 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..utils import metrics
-from ..utils.profiling import annotate, counters
 from . import _build
 
 ROUTES = ("pairs", "strided")
@@ -172,32 +172,19 @@ def plan_for(shape: Tuple[int, ...], h_strides: Tuple[int, ...], e_strides: Tupl
                 chunks, grid)
 
 
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = ((_vp, _vp, ctypes.POINTER(_ll)) + (_ll,) * 10
+             + (_i, _i, _i, ctypes.c_double, _vp, _vp, _vp, _vp))
 _RESIDENT = {}  # device index → resident blocks
-_LIB = None
-
-
-def _lib() -> ctypes.CDLL:
-    """The library, built, loaded and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("nmse")
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.nmse_launch.argtypes = [vp, vp, ctypes.POINTER(ll), ll, ll, ll, ll, ll, ll, ll, ll,
-                                    ll, ll, i, i, i, ctypes.c_double, vp, vp, vp, vp]
-        lib.nmse_launch.restype = i
-        lib.nmse_resident_blocks.argtypes = [i, ctypes.POINTER(i)]
-        lib.nmse_resident_blocks.restype = i
-        _LIB = lib
-    return _LIB
 
 
 def _resident(device: torch.device) -> int:
     """Blocks of the pass the card keeps resident at once (all SMs)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _RESIDENT:
-        lib = _lib()
         n = ctypes.c_int(0)
-        _build.check(lib, lib.nmse_resident_blocks(index, ctypes.byref(n)), "nmse occupancy")
+        _build.call("nmse", "nmse_resident_blocks", (_i, ctypes.POINTER(_i)), index,
+                    ctypes.byref(n))
         _RESIDENT[index] = n.value
     return _RESIDENT[index]
 
@@ -211,10 +198,8 @@ def plan(h_true: torch.Tensor, h_est: torch.Tensor, axes: Optional[Sequence[int]
 
 
 def _check(h_true: torch.Tensor, h_est: torch.Tensor) -> None:
-    """Raise unless the kernel takes these inputs of one device: CUDA,
-    complex64, no gradient to record, Ĥ broadcastable to H's shape."""
-    if h_true.device.type != "cuda":
-        raise ValueError(f"the NMSE runs on CPU or CUDA tensors, not {h_true.device}")
+    """Raise unless the kernel takes these CUDA inputs: complex64, no
+    gradient to record, Ĥ broadcastable to H's shape."""
     if h_true.dtype != torch.complex64 or h_est.dtype != torch.complex64:
         raise TypeError(f"the NMSE kernel takes complex64, got {h_true.dtype}, {h_est.dtype}")
     if torch.is_grad_enabled() and (h_true.requires_grad or h_est.requires_grad):
@@ -243,15 +228,12 @@ def _launch(pl: Plan, h_true: torch.Tensor, h_est: torch.Tensor):
     out = torch.empty(pl.rows, dtype=torch.float32, device=dev)
     pad = [(1, 0, 0)] * (MAX_DIMS - len(pl.outer)) + list(pl.outer)
     outer = (ctypes.c_longlong * (3 * MAX_DIMS))(*(d[j] for j in range(3) for d in pad))
-    lib = _lib()
-    status = lib.nmse_launch(
-        h_true.data_ptr(), h_est.data_ptr(), outer, pl.rep[0], pl.rep[1], *pl.inner, pl.rows,
-        pl.lines_per_row, pl.pieces, pl.piece, pl.chunks, pl.team, pl.grid,
-        int(pl.route == "pairs"), metrics.EPS, partials.data_ptr(), sums.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    _build.launch(
+        "nmse", pl.route, dev, _ARGTYPES, h_true.data_ptr(), h_est.data_ptr(), outer,
+        pl.rep[0], pl.rep[1], *pl.inner, pl.rows, pl.lines_per_row, pl.pieces, pl.piece,
+        pl.chunks, pl.team, pl.grid, int(pl.route == "pairs"), metrics.EPS,
+        partials.data_ptr(), sums.data_ptr(), out.data_ptr(),
     )
-    counters[f"ops.nmse.{pl.route}"] += 1
-    _build.check(lib, status, "nmse kernel")
     return out.reshape(pl.out_shape), sums.reshape(pl.out_shape + (2,))
 
 
@@ -261,16 +243,19 @@ def _reduce(h_true: torch.Tensor, h_est: torch.Tensor, axes, with_mse: bool):
     call on CUDA."""
     if h_est.device != h_true.device:
         raise ValueError(f"h_true on {h_true.device} but h_est on {h_est.device}")
-    with annotate("ops.nmse"):
-        if h_true.device.type == "cpu":
-            counters["ops.nmse.plain"] += 1
-            m = metrics.mse(h_true, h_est, axes) if with_mse else None
-            return nmse_plain(h_true, h_est, axes), m
+
+    def plain():
+        m = metrics.mse(h_true, h_est, axes) if with_mse else None
+        return nmse_plain(h_true, h_est, axes), m
+
+    def card():
         _check(h_true, h_est)
         e = h_est.expand(h_true.shape)
         pl = plan(h_true, e, axes)
         out, sums = _launch(pl, h_true, e)
         return out, (sums[..., 0] / pl.elements).float() if with_mse else None
+
+    return _build.run("nmse", h_true.device, plain, card)
 
 
 def nmse(h_true: torch.Tensor, h_est: torch.Tensor, axes: Optional[Sequence[int]] = None):

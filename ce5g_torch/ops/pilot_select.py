@@ -22,9 +22,10 @@ and the card's SMs. CPU tensors run :func:`pilot_select_plain`, the rule
 as the port ran it before the kernel. Both give the same bits: counts and
 ranks are integers and every comparison a float32 one.
 
-Each call runs in the span ``ops.pilot_select`` and counts
-``ops.pilot_select.<route>`` for a launch, ``ops.pilot_select.plain`` for
-a call that ran the plain version (``utils.profiling``).
+Each call runs in the span ``ops.pilot_select``; inside it, a launch runs
+in the span ``ops.pilot_select.<route>`` and the plain version in
+``ops.pilot_select.plain``, each counting the counter of its name
+(``_build.run``, ``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -35,7 +36,6 @@ from typing import Tuple
 
 import torch
 
-from ..utils.profiling import annotate, counters
 from . import _build
 
 #: the kernel's routes (see the module note)
@@ -122,23 +122,33 @@ def plan(u: torch.Tensor) -> Plan:
     return plan_for(u.shape[0], u.shape[1], _SMS[index])
 
 
-def pilot_select_plain(u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int,
-                       num_subcarriers: int, p_max: int):
-    """Plain PyTorch version: 25 rounds of float32 threshold bisection find
-    the n-th order statistic, then a cumsum rank drops ties past n — the
-    same float32 steps as ``ce5g_tpu.physics.pilots.scattered_pattern``
-    (:37-77). Returns (mask, positions, valid)."""
-    b, total = u.shape
-    dev = u.device
-    lo = torch.zeros(b, dtype=torch.float32, device=dev)
-    hi = torch.ones(b, dtype=torch.float32, device=dev)
+def threshold_select(u: torch.Tensor, n_pilots: torch.Tensor):
+    """The plain rule's selection: 25 rounds of float32 threshold bisection
+    find each frame's n-th order statistic, then a cumsum rank drops ties
+    past n. ``u`` (B, T) float32, ``n_pilots`` (B,) → the kept elements
+    (B, T) bool and the rank of each element below the threshold by linear
+    index (B, T) int32."""
+    b = u.shape[0]
+    lo = torch.zeros(b, dtype=torch.float32, device=u.device)
+    hi = torch.ones(b, dtype=torch.float32, device=u.device)
     for _ in range(ROUNDS):
         mid = 0.5 * (lo + hi)
         above = (u < mid[:, None]).sum(dim=1) >= n_pilots
         lo, hi = torch.where(above, lo, mid), torch.where(above, mid, hi)
     pre = u < hi[:, None]
-    rank = torch.cumsum(pre.to(torch.int32), dim=1) - 1  # rank by linear index
-    sel = pre & (rank < n_pilots[:, None])
+    rank = torch.cumsum(pre.to(torch.int32), dim=1) - 1
+    return pre & (rank < n_pilots[:, None]), rank
+
+
+def pilot_select_plain(u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int,
+                       num_subcarriers: int, p_max: int):
+    """Plain PyTorch version: :func:`threshold_select`, then the mask, the
+    compacted positions and the validity table — the same float32 steps as
+    ``ce5g_tpu.physics.pilots.scattered_pattern`` (:37-77). Returns (mask,
+    positions, valid)."""
+    b, total = u.shape
+    dev = u.device
+    sel, rank = threshold_select(u, n_pilots)
     mask = sel.reshape(b, num_symbols, num_subcarriers).to(torch.float32)
 
     # Compact the selected linear indices into the fixed p_max slot table;
@@ -156,19 +166,8 @@ def pilot_select_plain(u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int
     return mask, positions, valid
 
 
-_entry = None
-
-
-def _launcher():
-    """The C entry point, built and bound on first use."""
-    global _entry
-    if _entry is None:
-        fn = _build.library("pilot_select").pilot_select_launch
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, ll, ll, i, ll, i, i, ll, i, i, vp]
-        fn.restype = i
-        _entry = fn
-    return _entry
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _i, _ll, _i, _i, _ll, _i, _i, _vp)
 
 
 def _check(u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int, num_subcarriers: int):
@@ -211,13 +210,10 @@ def pilot_select(u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int,
             different devices.
     """
     _check(u, n_pilots, num_symbols, num_subcarriers)
-    with annotate("ops.pilot_select"):
-        if u.device.type == "cpu":
-            counters["ops.pilot_select.plain"] += 1
-            return pilot_select_plain(u, n_pilots, num_symbols, num_subcarriers, p_max)
-        if u.device.type != "cuda":
-            raise ValueError(f"the pilot selection runs on CPU or CUDA tensors, not {u.device}")
-        return _launch(plan(u), u, n_pilots, num_symbols, num_subcarriers, p_max)
+    return _build.run(
+        "pilot_select", u.device,
+        lambda: pilot_select_plain(u, n_pilots, num_symbols, num_subcarriers, p_max),
+        lambda: _launch(plan(u), u, n_pilots, num_symbols, num_subcarriers, p_max))
 
 
 def _launch(pl: Plan, u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int,
@@ -228,14 +224,11 @@ def _launch(pl: Plan, u: torch.Tensor, n_pilots: torch.Tensor, num_symbols: int,
     mask = u.new_empty(b, num_symbols, num_subcarriers)
     positions = n_pilots.new_empty(b, p_max, 2)
     valid = u.new_empty(b, p_max)
-    status = _launcher()(
-        u.data_ptr(), n_pilots.data_ptr(), mask.data_ptr(), positions.data_ptr(),
-        valid.data_ptr(), b, total, num_subcarriers, p_max, pl.cluster, pl.frames, pl.words,
-        pl.threads, int(pl.route != "global"), torch.cuda.current_stream(u.device).cuda_stream,
+    _build.launch(
+        "pilot_select", pl.route, u.device, _ARGTYPES, u.data_ptr(), n_pilots.data_ptr(),
+        mask.data_ptr(), positions.data_ptr(), valid.data_ptr(), b, total, num_subcarriers,
+        p_max, pl.cluster, pl.frames, pl.words, pl.threads, int(pl.route != "global"),
     )
-    counters[f"ops.pilot_select.{pl.route}"] += 1
-    if status != 0:
-        _build.check(_build.library("pilot_select"), status, "pilot_select kernel")
     return mask, positions, valid
 
 

@@ -7,9 +7,10 @@ samples/s, run_phase3_robust.py:232-234):
   * :func:`annotate` — the port's span, one at each layer boundary of the
     timed entry (``physics.simulate`` and its stages, ``estimators.
     estimate`` and the estimators' stages, ``ops.<kernel>``,
-    ``metrics.nmse``; inside ``ops.hpd_solve``, ``ops.hpd_solve.<route>``
+    ``metrics.nmse``; inside each ``ops.<kernel>``, ``ops.<kernel>.<route>``
     around its kernel's launch, named as the route's counter, and
-    ``ops.hpd_solve.plain`` around the plain version). Off by default:
+    ``ops.<kernel>.plain`` around the plain version: ``ops._build``).
+    Off by default:
     a span then costs one check of a module flag and returns one shared
     null context. Inside
     :func:`recording` each span keeps, in memory, its name, the index of
@@ -27,11 +28,11 @@ samples/s, run_phase3_robust.py:232-234):
         ``ops.nmse.<route>`` (``pairs``, ``strided``),
         ``ops.pilot_select.<route>`` (``block``, ``cluster``, ``global``):
         kernel launches by route (an interpolation route, and ``nmse``,
-        may be two CUDA launches); ``ops.<kernel>.plain``: calls on CPU tensors (for
-        ``nmse`` also any input its kernel does not take), which run the
-        plain PyTorch version (:func:`launches` sums a kernel's routes);
-      - ``time_rank.computed``: runs of ``estimators.api.auto_time_rank``'s
-        host loop;
+        may be two CUDA launches); ``ops.<kernel>.plain``: calls on CPU
+        tensors, which run the plain PyTorch version (:func:`launches`
+        sums a kernel's routes);
+      - ``time_rank.computed``: runs of
+        ``estimators.time_prior.auto_time_rank``'s host loop;
       - ``tables.built``: misses of ``physics.profiles.cached`` (device
         tables built from a profile table);
       - ``kernels.loaded``: CUDA libraries loaded by ``ops._build.library``

@@ -841,7 +841,7 @@ def mmse_full_float64(cfg, frames):
     (moved to the CPU and widened): the per-frame branch of
     ``estimators.mmse.mmse_full_estimate`` with the main path's time rank."""
     import torch
-    from ce5g_torch.estimators.api import auto_time_rank
+    from ce5g_torch.estimators.time_prior import auto_time_rank
     from ce5g_torch.estimators.mmse import mmse_full_estimate
     from ce5g_torch.physics.simulate import table_for, table_tensors
 

@@ -156,7 +156,7 @@ def woodbury_mmse_full(rx_symbols, tx_grid, pilot_mask, num_tx, snr_db, freq_mat
     solves the same filter by the push-through identity; in float64 the two
     forms agree to rounding. Per-frame contractions; shapes and arguments
     as ``ce5g_torch.estimators.mmse.mmse_full_estimate``."""
-    from ce5g_torch.estimators.mmse import _legendre_basis, bessel_j0
+    from ce5g_torch.estimators.time_prior import bessel_j0, legendre_basis
 
     real = rx_symbols.real.dtype
     m = pilot_mask.to(real)
@@ -166,8 +166,8 @@ def woodbury_mmse_full(rx_symbols, tx_grid, pilot_mask, num_tx, snr_db, freq_mat
     ds = torch.arange(s, dtype=real)
     rt = bessel_j0(2.0 * np.pi * doppler_hz.to(real)[:, None, None]
                    * (ds[:, None] - ds[None, :]) * symbol_duration)
-    q = (_legendre_basis(s, time_rank, "cpu").to(real) if time_rank is not None and time_rank < s
-         else torch.eye(s, dtype=real))
+    q = (torch.as_tensor(legendre_basis(s, time_rank)).to(real)
+         if time_rank is not None and time_rank < s else torch.eye(s, dtype=real))
     bm = q.T @ rt @ q
     ridge = 1e-4 * bm.diagonal(dim1=-2, dim2=-1).sum(-1) / q.shape[1] + 1e-6
     v = q @ torch.linalg.cholesky(bm + ridge[:, None, None] * torch.eye(q.shape[1], dtype=real))

@@ -30,6 +30,7 @@ import torch
 from ce5g_torch.cli import bench, bench_factory, benchmark_suite, profile_bench
 from ce5g_torch.cli import profile_fine, profile_solve
 from ce5g_torch.ops.hpd_solve import hpd_solve_plain
+from ce5g_torch.ops.pilot_select import threshold_select
 from ce5g_torch.utils import profiling
 
 from _torch_parity import jax_draws, port_cfg
@@ -102,7 +103,9 @@ def test_bench_nmse_matches_jax(small_bench_jcfg, estimator, method):
 @pytest.mark.parametrize("form", ["per_frame", "batched"])
 def test_bisections_match_jax_pilots(form):
     """profile_fine's bisections on the JAX package's uniforms give
-    ce5g_tpu.physics.pilots' scattered mask exactly (14 × 599, 10%)."""
+    ce5g_tpu.physics.pilots' scattered mask exactly (14 × 599, 10%): its
+    per-frame loop, and the batched selection of its row "pilot: batched
+    bisect+cumsum", ``ops.pilot_select.threshold_select``."""
     from ce5g_tpu.physics.pilots import scattered_pattern
 
     s, k, density = 14, 599, 0.1
@@ -112,7 +115,7 @@ def test_bisections_match_jax_pilots(form):
     n = int(s * k * np.float32(density))
     u_t = torch.tensor(u)
     sel = (profile_fine.bisect_per_frame(u_t, n) if form == "per_frame"
-           else profile_fine.bisect_batched(u_t, n))
+           else threshold_select(u_t, torch.full((len(u),), n, dtype=torch.int32))[0])
     np.testing.assert_array_equal(sel.reshape(-1, s, k).numpy(), ref.astype(bool))
     if form == "per_frame":
         counts = profile_fine.bisect_per_frame(u_t, n, rank=False)

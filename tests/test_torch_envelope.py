@@ -357,7 +357,7 @@ def _db(h, x):
 
 def _mmse_full_float64(cfg, frames):
     """The port's mmse_full on ``frames`` in float64 (its per-frame branch)."""
-    from ce5g_torch.estimators.api import auto_time_rank
+    from ce5g_torch.estimators.time_prior import auto_time_rank
     from ce5g_torch.estimators.mmse import mmse_full_estimate
     from ce5g_torch.physics.simulate import table_for, table_tensors
 
@@ -404,7 +404,7 @@ def test_jax_mmse_full_gap_is_its_float32_rounding():
     rounding in that form (its (e − corr)/σ² cancellation), not a
     difference in what the two packages compute."""
     from _torch_parity import woodbury_mmse_full
-    from ce5g_torch.estimators.api import auto_time_rank
+    from ce5g_torch.estimators.time_prior import auto_time_rank
     from ce5g_torch.physics.simulate import table_for, table_tensors
 
     jcfg, jf, tf = _config_frames("nr100_4x4")

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from ce5g_torch.ops import _build
 from ce5g_torch.ops import pilot_select as select_mod
 from ce5g_torch.physics.pilots import num_pilots_for, scattered_pattern
 from ce5g_torch.utils import profiling
@@ -189,7 +190,7 @@ def test_plain_version_is_the_rule_before_the_kernel(kind):
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    select_mod._launcher()  # built and loaded before any test counts launches
+    _build.library("pilot_select")  # built and loaded before any test counts launches
     return torch.device("cuda")
 
 

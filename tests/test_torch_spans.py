@@ -9,6 +9,7 @@ launches are counted here through stand-ins for the CUDA libraries: the
 card tests of tests/test_torch_ops.py and tests/test_torch_envelope.py
 count the real ones.
 """
+import collections
 import json
 import types
 
@@ -17,7 +18,7 @@ import torch
 
 from ce5g_torch import ExperimentConfig, MIMOConfig, OFDMConfig
 from ce5g_torch.estimators import estimate_batch
-from ce5g_torch.estimators.api import auto_time_rank
+from ce5g_torch.estimators.time_prior import auto_time_rank
 from ce5g_torch.ops import _build
 from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
@@ -111,22 +112,26 @@ def test_timed_entry_spans():
         moved = profiling.counters - before
         names = [sp.name for sp in spans]
         parent = {sp.name: (spans[sp.parent].name if sp.parent >= 0 else None) for sp in spans}
-        assert names[:6] == ["physics.simulate", "physics.pattern", "ops.pilot_select",
-                             "physics.jakes", "physics.response", "physics.received"]
-        assert {parent[n] for n in names[1:2] + names[3:6]} == {"physics.simulate"}
+        assert names[:7] == ["physics.simulate", "physics.pattern", "ops.pilot_select",
+                             "ops.pilot_select.plain", "physics.jakes", "physics.response",
+                             "physics.received"]
+        assert {parent[n] for n in names[1:2] + names[4:7]} == {"physics.simulate"}
         assert parent["ops.pilot_select"] == "physics.pattern"
+        assert parent["ops.pilot_select.plain"] == "ops.pilot_select"
         assert names.count("ops.pilot_select") == 1
         assert moved["ops.pilot_select.plain"] == 1 and profiling.launches("pilot_select", moved) == 0
         assert parent["physics.simulate"] is None and parent["estimators.estimate"] is None
-        assert names[-2:] == ["metrics.nmse", "ops.nmse"] and parent["metrics.nmse"] is None
-        assert parent["ops.nmse"] == "metrics.nmse" and names.count("ops.nmse") == 1
+        assert names[-3:] == ["metrics.nmse", "ops.nmse", "ops.nmse.plain"]
+        assert parent["metrics.nmse"] is None and parent["ops.nmse"] == "metrics.nmse"
+        assert parent["ops.nmse.plain"] == "ops.nmse" and names.count("ops.nmse") == 1
         assert moved["ops.nmse.plain"] == 1 and profiling.launches("nmse", moved) == 0
         if estimator == "ls":
             kernel = "ops.interp_fused" if method == "linear" else "ops.interp"
-            assert names[6:-2] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel]
-            assert parent[kernel] == "ls.interpolate"
+            assert names[7:-3] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel,
+                                   f"{kernel}.plain"]
+            assert parent[kernel] == "ls.interpolate" and parent[f"{kernel}.plain"] == kernel
         else:
-            assert names[6:-2] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
+            assert names[7:-3] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
                                    "mmse_full.time_prior", "mmse_full.gram", "mmse_full.solve",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
@@ -202,20 +207,19 @@ def _moved(fn):
 
 
 @pytest.fixture
-def fake_card(monkeypatch):
-    """The kernels' C entry points and the CUDA stream replaced by stand-ins
-    that launch nothing, so that each wrapper's ``_launch`` runs on CPU
-    tensors."""
-    lib = types.SimpleNamespace(interp_launch=lambda *a: 0, interp_fused_launch=lambda *a: 0,
-                                nmse_launch=lambda *a: 0)
-    monkeypatch.setattr(hpd_mod, "_launcher", lambda: (lambda *a: 0))
-    monkeypatch.setattr(grid_mod, "_lib", lambda: lib)
-    monkeypatch.setattr(slot_mod, "_lib", lambda: lib)
-    monkeypatch.setattr(nmse_mod, "_lib", lambda: lib)
-    monkeypatch.setattr(select_mod, "_launcher", lambda: (lambda *a: 0))
+def fake_stream(monkeypatch):
+    """The CUDA stream and the card's SMs replaced by stand-ins."""
     monkeypatch.setattr(select_mod, "_SMS", {0: 132})
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
+
+
+@pytest.fixture
+def fake_card(monkeypatch, fake_stream):
+    """Every kernel's C entry point (``_build._bind``, the seam that the five
+    wrappers bind through) replaced by a stand-in that launches nothing, so
+    that each wrapper's ``_launch`` runs on CPU tensors."""
+    monkeypatch.setattr(_build, "_bind", lambda *a: (lambda *args: 0))
 
 
 HPD_ROUTE_SHAPES = {"registers": (45, 4), "cluster": (135, 4), "blocked": (400, 4)}
@@ -253,8 +257,10 @@ def test_interp_fused_counts_its_route(fake_card, route):
     vals = torch.zeros(1, 4, 14, 599, dtype=torch.complex64)
     mask = torch.zeros(1, 14, 599)
     pl = grid_mod._plan(4, 14, 599, route)
-    moved = _moved(lambda: grid_mod._launch(pl, vals, mask, "linear"))
+    with profiling.recording() as spans:
+        moved = _moved(lambda: grid_mod._launch(pl, vals, mask, "linear"))
     assert moved == {f"ops.interp_fused.{route}": 1}
+    assert [(sp.name, sp.parent) for sp in spans] == [(f"ops.interp_fused.{route}", -1)]
     assert profiling.launches("interp_fused", moved) == 1
 
 
@@ -265,8 +271,10 @@ def test_interp_counts_its_route(fake_card, route):
     pos = torch.zeros(1, p, 2, dtype=torch.int32)
     valid = torch.zeros(1, p)
     pl = slot_mod._plan(4, p, 14, 599, route)
-    moved = _moved(lambda: slot_mod._launch(pl, vals, pos, valid, (14, 599), "cubic"))
+    with profiling.recording() as spans:
+        moved = _moved(lambda: slot_mod._launch(pl, vals, pos, valid, (14, 599), "cubic"))
     assert moved == {f"ops.interp.{route}": 1}
+    assert [(sp.name, sp.parent) for sp in spans] == [(f"ops.interp.{route}", -1)]
     assert profiling.launches("interp", moved) == 1
 
 
@@ -278,8 +286,10 @@ def test_nmse_counts_its_route(fake_card, route):
     axes = None if route == "pairs" else (0,)  # the frame axis alone is not contiguous
     pl = nmse_mod.plan_for(tuple(h.shape), h.stride(), e.stride(), axes, 528)
     assert pl.route == route
-    moved = _moved(lambda: nmse_mod._launch(pl, h, e))
+    with profiling.recording() as spans:
+        moved = _moved(lambda: nmse_mod._launch(pl, h, e))
     assert moved == {f"ops.nmse.{route}": 1}
+    assert [(sp.name, sp.parent) for sp in spans] == [(f"ops.nmse.{route}", -1)]
     assert profiling.launches("nmse", moved) == 1
 
 
@@ -289,8 +299,8 @@ SELECT_ROUTE_SHAPES = {"block": (256, 14, 599), "cluster": (2, 140, 599),
 
 @pytest.mark.parametrize("route", select_mod.ROUTES)
 def test_pilot_select_counts_its_route(fake_card, route):
-    """Each launch counts its route, one launch, in one ``ops.pilot_select``
-    span."""
+    """Each launch counts its route, one launch, in the span of its route
+    inside one ``ops.pilot_select`` span."""
     b, s, k = SELECT_ROUTE_SHAPES[route]
     u = torch.zeros(b, s * k)
     n = torch.full((b,), s * k // 10, dtype=torch.int32)
@@ -300,7 +310,97 @@ def test_pilot_select_counts_its_route(fake_card, route):
                                                        n.as_subclass(_OnCard), s, k, s * k // 8))
     assert moved == {f"ops.pilot_select.{route}": 1}
     assert profiling.launches("pilot_select", moved) == 1
-    assert [(sp.name, sp.parent) for sp in spans] == [("ops.pilot_select", -1)]
+    assert [(sp.name, sp.parent) for sp in spans] == [
+        ("ops.pilot_select", -1), (f"ops.pilot_select.{route}", 0)]
+
+
+def _one_launch(kernel):
+    """One launch of ``kernel`` through its wrapper's ``_launch`` on CPU
+    tensors (a plan the card would take), and the route it counts."""
+    c64 = torch.complex64
+    if kernel == "hpd_solve":
+        pl = hpd_mod.plan(45, 4)
+        return pl.route, lambda: hpd_mod._launch(pl, torch.zeros(1, 45, 45, dtype=c64),
+                                                 torch.zeros(1, 45, 4, dtype=c64))
+    if kernel == "interp_fused":
+        pl = grid_mod.plan(4, 14, 599)
+        return pl.route, lambda: grid_mod._launch(pl, torch.zeros(1, 4, 14, 599, dtype=c64),
+                                                  torch.zeros(1, 14, 599), "linear")
+    if kernel == "interp":
+        pl = slot_mod.plan(4, 64, 14, 599)
+        return pl.route, lambda: slot_mod._launch(
+            pl, torch.zeros(1, 4, 64, dtype=c64), torch.zeros(1, 64, 2, dtype=torch.int32),
+            torch.zeros(1, 64), (14, 599), "cubic")
+    if kernel == "nmse":
+        h = torch.zeros(2, 14, 4, 4, 599, dtype=c64)
+        pl = nmse_mod.plan_for(tuple(h.shape), h.stride(), h.stride(), None, 528)
+        return pl.route, lambda: nmse_mod._launch(pl, h, h)
+    pl = select_mod.plan_for(4, 14 * 599, 132)
+    return pl.route, lambda: select_mod._launch(
+        pl, torch.zeros(4, 14 * 599), torch.full((4,), 838, dtype=torch.int32), 14, 599, 1024)
+
+
+class _FakeEntry:
+    """A stand-in for a ctypes function: counts how often its types are
+    set and it is called, and converts each argument by its declared type
+    as ctypes would."""
+
+    def __init__(self, status=0):
+        self.sets = collections.Counter()
+        self.calls = 0
+        self.status = status
+
+    def __setattr__(self, name, value):
+        if name in ("argtypes", "restype"):
+            self.sets[name] += 1
+        object.__setattr__(self, name, value)
+
+    def __call__(self, *args):
+        assert len(args) == len(self.argtypes)
+        for arg, t in zip(args, self.argtypes):
+            t.from_param(arg)
+        self.calls += 1
+        return self.status
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_a_failed_launch_raises_naming_its_kernel(monkeypatch, fake_stream, kernel):
+    """A launch whose C entry returns a CUDA error raises RuntimeError with
+    the kernel's name and the error's string, and counts no launch."""
+    fake = {f"{kernel}_launch": _FakeEntry(status=700),
+            "ce5g_error_string": lambda status: b"an illegal memory access was encountered"}
+    monkeypatch.setattr(_build, "_bound", {})
+    monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(**fake))
+    route, run = _one_launch(kernel)
+
+    def failing():
+        with pytest.raises(RuntimeError, match=rf"^{kernel} kernel: CUDA error 700 \(an "
+                                               r"illegal memory access was encountered\)$"):
+            run()
+
+    assert _moved(failing) == {}
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_a_kernel_is_bound_once(monkeypatch, fake_stream, kernel):
+    """Repeated launches load the library and set the entry's types once;
+    each launch runs in its route's span and counts it."""
+    entry = _FakeEntry()
+    loads = []
+
+    def library(name):
+        loads.append(name)
+        return types.SimpleNamespace(**{f"{kernel}_launch": entry})
+
+    monkeypatch.setattr(_build, "_bound", {})
+    monkeypatch.setattr(_build, "library", library)
+    route, run = _one_launch(kernel)
+    with profiling.recording() as spans:
+        moved = _moved(lambda: [run() for _ in range(3)])
+    assert loads == [kernel] and entry.calls == 3
+    assert entry.sets == {"argtypes": 1, "restype": 1}
+    assert moved == {f"ops.{kernel}.{route}": 3}
+    assert [sp.name for sp in spans] == [f"ops.{kernel}.{route}"] * 3
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import torch
 
 from ce5g_torch import ExperimentConfig, MIMOConfig, OFDMConfig
 from ce5g_torch.estimators import estimate_batch
-from ce5g_torch.estimators.api import auto_time_rank
+from ce5g_torch.estimators.time_prior import auto_time_rank
 from ce5g_torch.estimators.blind import device_tables_for, estimate_priors
 from ce5g_torch.estimators.mmse import mmse_full_estimate
 from ce5g_torch.physics import FrameParams, draw_frames, simulate_batch

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version and a launch counter: ``hpd_solve``, ``interp_fused``, ``interp``,
-``nmse`` (the score's reduction) and ``pilot_select`` (the scattered
-pilots). The sources are in ``ce5g_torch/csrc``; ``_build`` compiles them
+``nmse`` (the score's reduction), ``pilot_select`` (the scattered pilots)
+and ``channel`` (the channel H and the received grid). The sources are in ``ce5g_torch/csrc``; ``_build`` compiles them
 on first use."""

@@ -10,6 +10,9 @@ batched over a leading frame axis B:
     The normal draws are passed in;
   * the time-domain chain's time-varying FIR, y_r(n) = Σ_p Σ_t
     g[n, r, t, p] · x_t(n − d_p), with each frame's own tap delays.
+
+``simulate_batch`` forms H and the received grid through ``ops.channel``,
+one kernel call on CUDA; its plain version, on the CPU, is these functions.
 """
 from __future__ import annotations
 

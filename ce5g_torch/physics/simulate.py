@@ -32,10 +32,10 @@ import torch
 
 from ..config import ExperimentConfig
 from ..device import resolve_device
+from ..ops import channel as ops_channel
 from ..utils.profiling import annotate
 from .jakes import dense_fading, jakes_oscillator_params, path_gains_symbol_sampled
-from .mimo import (apply_channel, apply_channel_common_grid, frequency_response,
-                   time_domain_apply)
+from .mimo import frequency_response, time_domain_apply
 from .ofdm import demodulate, modulate
 from .pilots import make_pattern
 from .profiles import MAX_PATHS, ProfileTable, build_profile_table, cached
@@ -211,8 +211,10 @@ def simulate_batch(
 
     ``draws`` and ``params`` are moved to ``device``; every output lies there.
     Runs in the span ``physics.simulate``, its stages in ``physics.pattern``
-    (the pilot pattern and the TX grid), ``physics.jakes``,
-    ``physics.response`` and ``physics.received`` (``utils.profiling``).
+    (the pilot pattern and the TX grid), ``physics.jakes`` and
+    ``physics.channel`` (the channel H and the received grid, one
+    ``ops.channel`` call: the TX grid's T extent picks its route;
+    ``utils.profiling``).
     """
     with annotate("physics.simulate"):
         with annotate("physics.pattern"):
@@ -232,19 +234,10 @@ def simulate_batch(
                 ofdm.sampling_rate,
             )  # (B, S, R, T, P)
 
-        freq_matrix = f_table[pidx]  # (B, P, K)
-        with annotate("physics.response"):
-            h = frequency_response(gains, freq_matrix)  # (B, S, R, T, K)
-
-        with annotate("physics.received"):
-            if orthogonal_pilots:
-                rx = apply_channel(tx, h, params.snr_db, draws.noise_re, draws.noise_im)
-            else:
-                # common grid on all TX ⇒ the TX sum moves onto the path gains
-                rx = apply_channel_common_grid(
-                    tx[:, :, 0, :], gains, freq_matrix, params.snr_db,
-                    draws.noise_re, draws.noise_im,
-                )
+        with annotate("physics.channel"):
+            grid = tx if orthogonal_pilots else tx[:, :, :1]  # (B, S, T or 1, K)
+            h, rx = ops_channel.channel(gains, f_table, pidx, grid, params.snr_db,
+                                        draws.noise_re, draws.noise_im)
         return _frame(tx, rx, h, pattern, params)
 
 

@@ -26,9 +26,10 @@ samples/s, run_phase3_robust.py:232-234):
         ``blocked``), ``ops.interp_fused.<route>`` (``shared``,
         ``global``), ``ops.interp.<route>`` (``frame``, ``tile``),
         ``ops.nmse.<route>`` (``pairs``, ``strided``),
-        ``ops.pilot_select.<route>`` (``block``, ``cluster``, ``global``):
-        kernel launches by route (an interpolation route, and ``nmse``,
-        may be two CUDA launches); ``ops.<kernel>.plain``: calls on CPU
+        ``ops.pilot_select.<route>`` (``block``, ``cluster``, ``global``),
+        ``ops.channel.<route>`` (``common``, ``per_tx``): kernel launches
+        by route (an interpolation route, ``nmse`` and ``channel`` may be
+        two CUDA launches); ``ops.<kernel>.plain``: calls on CPU
         tensors, which run the plain PyTorch version (:func:`launches`
         sums a kernel's routes);
       - ``time_rank.computed``: runs of

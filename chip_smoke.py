@@ -4,7 +4,7 @@
     python3 path/to/chip_smoke.py      (from any directory)
 
 Phases, one line each; any failure exits non-zero:
-  1. setup: the card's name and power limit; build the five CUDA kernels;
+  1. setup: the card's name and power limit; build the six CUDA kernels;
   2. the HPD-solve kernel against its plain PyTorch version, on random
      systems and on the hard cases of ce5g_torch.ops.hard_cases;
   3. the grid-interpolation kernel against its plain PyTorch version, at
@@ -39,7 +39,10 @@ Phases, one line each; any failure exits non-zero:
      (``nmse``) at the nr100_4x64 benchmark batch beside its bound and the
      plain chain, the pilot selection (``pilot_select``) at the batches of
      the three benchmark configurations beside its bound and its plain
-     version, and pipeline frames/s;
+     version, the channel and the received grid (``channel``) at the three
+     benchmark configurations' batches by both routes, held to the plain
+     chain and to float64, twice to the same bits, and timed beside its
+     bound and the plain chain, and pipeline frames/s;
   8. where a batch goes: a torch.profiler trace of three warm batches of
      the pipeline for 'mmse_full', 'ls' and 'ls:cubic' — the ten device
      operations with the most time, the device's idle share of the window
@@ -557,6 +560,11 @@ def rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
+def rel_max(a, b):
+    """max |a − b| over the rms of b."""
+    return float((a - b).abs().max() / b.abs().pow(2).mean().sqrt())
+
+
 def check_hpd(dev):
     import torch
     from ce5g_torch.ops import hard_cases
@@ -757,6 +765,7 @@ class capturing:
     def __init__(self):
         import ce5g_torch.estimators.interpolate as interp_est
         import ce5g_torch.estimators.mmse as mmse_est
+        import ce5g_torch.ops.channel as channel_mod
         import ce5g_torch.ops.nmse as nmse_mod
         import ce5g_torch.physics.pilots as pilots_mod
 
@@ -764,7 +773,8 @@ class capturing:
                       (interp_est, "interpolate_grid_fused", "interp_fused"),
                       (interp_est, "interpolate_slots", "interp"),
                       (nmse_mod, "nmse", "nmse"),
-                      (pilots_mod, "pilot_select", "pilot_select")]
+                      (pilots_mod, "pilot_select", "pilot_select"),
+                      (channel_mod, "channel", "channel")]
         self.args = {}
 
     def __enter__(self):
@@ -978,6 +988,7 @@ def hold_against_plain(path, captured):
     """Each kernel that ``path`` launched against its plain version on the
     inputs ``path`` gave it, at the tolerances of phases 2-4. Returns the
     max abs errors, by kernel name."""
+    from ce5g_torch.ops import channel as channel_mod
     from ce5g_torch.ops import hpd_solve as hpd_mod
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
@@ -1033,6 +1044,17 @@ def hold_against_plain(path, captured):
         parts.append(f"pilot_select {tuple(u.shape)} pilots {int(n.min())}-{int(n.max())} "
                      f"elements that differ {errs['pilot_select']}")
         fail_unless(errs["pilot_select"] == 0, f"{path} pilot_select equals its plain version")
+    if "channel" in captured:
+        args = captured["channel"]
+        (h, rx), (hp, rxp) = channel_mod.channel(*args), channel_mod.channel_plain(*args)
+        e_h, e_rx = rel_max(h, hp), rel_max(rx, rxp)
+        errs["channel"] = max(float((h - hp).abs().max()), float((rx - rxp).abs().max()))
+        parts.append(f"channel {tuple(h.shape)} {channel_mod.route_of(args[3])} max error over "
+                     f"the rms vs plain: H {e_h:.2e}, rx {e_rx:.2e}")
+        fail_unless(e_h <= CHANNEL_H_LIMIT and e_rx <= CHANNEL_RX_LIMIT,
+                    f"{path} channel within {CHANNEL_H_LIMIT:g} (H) and {CHANNEL_RX_LIMIT:g} "
+                    f"(rx) of the plain chain")
+        del h, rx, hp, rxp
     print(f"{path} inputs, kernel vs plain: " + "; ".join(parts))
     return errs
 
@@ -1154,6 +1176,104 @@ def pilot_select_times(dev):
         fail_unless(ms[0] < plain[0], f"pilot_select at ({b}, {s * k}) faster than its plain version")
         del u, got, want
         torch.cuda.empty_cache()
+
+
+#: (B, S, R, T, K) of the benchmark's configurations: bench_4x4, nr100_4x64,
+#: lte_frame_etu300_4x4
+CHANNEL_SHAPES = ((256, 14, 4, 4, 599), (64, 14, 64, 4, 3275), (512, 140, 4, 4, 599))
+#: frames of each shape held to float64
+CHANNEL_FLOAT64_FRAMES = 4
+#: the kernel against the plain chain and against float64, max error over the
+#: rms: ≈ 2.4× the largest reading at the three shapes (1.26e-6, rx at the LTE
+#: frame against the plain chain, whose own error against float64 reads up
+#: to 9.4e-7)
+CHANNEL_H_LIMIT = 3e-6
+CHANNEL_RX_LIMIT = 3e-6
+
+
+def channel_inputs(gen, dev, b, s, r, t, k, route):
+    """The channel's inputs at one shape: gains laid out as the Jakes stage
+    returns them, the configuration's profile table and a mix of its three
+    profiles, a TX grid by ``route``, SNRs of 0-30 dB and noise."""
+    import torch
+    from ce5g_torch import ExperimentConfig, MIMOConfig, OFDMConfig
+    from ce5g_torch.physics.simulate import table_for, table_tensors
+
+    fft = 1 << (k + 1).bit_length()
+    cfg = ExperimentConfig(ofdm=OFDMConfig(fft_size=fft, num_symbols=s, useful_subcarriers=k + 1),
+                           mimo=MIMOConfig(num_tx=t, num_rx=r))
+    _, f_table = table_tensors(table_for(cfg), cfg, dev)
+    p = f_table.shape[1]
+    raw = torch.randn(b, s, p, r, t, 2, generator=gen, device=dev)
+    gains = torch.view_as_complex(raw).permute(0, 1, 3, 4, 2)  # (B, S, R, T, P)
+    pidx = torch.randint(0, f_table.shape[0], (b,), generator=gen, device=dev)
+    phase = 2.0 * math.pi * torch.rand(b, s, 1 if route == "common" else t, k, generator=gen,
+                                       device=dev)
+    tx = torch.exp(1j * phase).to(torch.complex64)
+    snr = 30.0 * torch.rand(b, generator=gen, device=dev)
+    nre = torch.randn(b, s, r, k, generator=gen, device=dev)
+    nim = torch.randn(b, s, r, k, generator=gen, device=dev)
+    return gains, f_table, pidx, tx, snr, nre, nim
+
+
+def channel_float64(gains, f_table, pidx, tx, snr, nre, nim):
+    """H and rx of the plain chain's formulas in float64."""
+    import torch
+
+    g = gains.to(torch.complex128)
+    h = torch.einsum("bsrtp,bpk->bsrtk", g, f_table.to(torch.complex128)[pidx])
+    x = tx.to(torch.complex128).expand(h.shape[0], h.shape[1], h.shape[3], h.shape[4])
+    y = torch.einsum("bsrtk,bstk->bsrk", h, x)
+    std = torch.sqrt((y.abs() ** 2).mean(dim=(1, 2, 3)) / 10.0 ** (snr.double() / 10.0) / 2.0)
+    return h, y + torch.complex(nre.double(), nim.double()) * std[:, None, None, None]
+
+
+def channel_times(dev):
+    """The channel and the received grid at each benchmark configuration's
+    batch by both routes: against the plain chain and, on the first frames,
+    float64 (max error over the rms within CHANNEL_H_LIMIT and
+    CHANNEL_RX_LIMIT), twice to the same bits, and timed beside its bound
+    and the plain chain (back to back), which it must beat."""
+    import torch
+    from ce5g_torch.ops import channel as channel_mod
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for shape in CHANNEL_SHAPES:
+        for route in channel_mod.ROUTES:
+            args = channel_inputs(gen, dev, *shape, route)
+            pl = channel_mod.plan(args[0], args[3])
+            h, rx = channel_mod.channel(*args)
+            again = channel_mod.channel(*args)
+            same = torch.equal(h, again[0]) and torch.equal(rx, again[1])
+            del again
+            hp, rxp = channel_mod.channel_plain(*args)
+            e_h, e_rx = rel_max(h, hp), rel_max(rx, rxp)
+            del hp, rxp
+            f = CHANNEL_FLOAT64_FRAMES
+            first = [a[:f] for a in args]
+            h64, rx64 = channel_float64(*first)
+            hp, rxp = channel_mod.channel_plain(*first)
+            k_h, k_rx = rel_max(h[:f], h64), rel_max(rx[:f], rx64)
+            p_h, p_rx = rel_max(hp, h64), rel_max(rxp, rx64)
+            del h, rx, hp, rxp, h64, rx64
+            torch.cuda.empty_cache()
+            ms = graph_ms(lambda: channel_mod.channel(*args))
+            plain = cuda_ms(lambda: channel_mod.channel_plain(*args), rounds=3, iters=5)
+            bound_ms, by = bound(*channel_mod.work(args[0], args[3]))
+            print(f"channel at {shape} {route}: kernel {ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), "
+                  f"bound {bound_ms:.4f} ms ({by}), {100.0 * bound_ms / ms[0]:.1f}% of it; plain "
+                  f"chain {plain[0]:.4f} ms; {pl.threads} threads x {pl.tiles} tiles, "
+                  f"{pl.group} (s, r) rows a block, grid {pl.grid}; max error over the rms: vs "
+                  f"plain H {e_h:.2e}, rx {e_rx:.2e}; vs float64 on {CHANNEL_FLOAT64_FRAMES} "
+                  f"frames H {k_h:.2e}, rx {k_rx:.2e} (plain {p_h:.2e}, {p_rx:.2e}); two calls "
+                  f"{'equal' if same else 'DIFFER'}")
+            fail_unless(same, f"channel at {shape} {route}: two calls give the same bits")
+            fail_unless(max(e_h, k_h) <= CHANNEL_H_LIMIT and max(e_rx, k_rx) <= CHANNEL_RX_LIMIT,
+                        f"channel at {shape} {route} within {CHANNEL_H_LIMIT:g} (H) and "
+                        f"{CHANNEL_RX_LIMIT:g} (rx) of the plain chain and of float64")
+            fail_unless(ms[0] < plain[0], f"channel at {shape} {route} faster than the plain chain")
+            del args
+            torch.cuda.empty_cache()
 
 
 def slower_than_replaced(dev):
@@ -2251,7 +2371,7 @@ def evaluation_phase(dev, card, serving_results, tune_sets):
         fail_unless(all(n > 0 for n in launches.values()),
                     f"every kernel launched on the evaluation path: {launches}")
         # (e) draws regular pilots: no scattered selection
-        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused", "pilot_select"}
+        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused", "pilot_select", "channel"}
                     and set(cap_regular.args) == set(launches) - {"pilot_select"},
                     f"the inputs captured: (a)-(d) {sorted(cap.args)}, (e) {sorted(cap_regular.args)}")
         hold_against_plain("evaluation path (a)-(d)", cap.args)
@@ -3331,6 +3451,7 @@ def main():
     from ce5g_torch.ops import interp as slot_mod
     from ce5g_torch.ops import interp_fused as interp_mod
     from ce5g_torch.ops import nmse as nmse_mod
+    from ce5g_torch.ops import channel as channel_mod
     from ce5g_torch.ops import pilot_select as select_mod
 
     wall_t0 = time.time()
@@ -3398,9 +3519,15 @@ def main():
                               lambda: select_mod.pilot_select(*select_args),
                               lambda: select_mod.pilot_select_plain(*select_args),
                               select_mod.work(*u_main.shape, p_main)))
+    channel_args = captured["channel"]
+    kernels.append(kernel_row("channel", "ce5g_torch/csrc/channel.cu", None, launches["channel"],
+                              main_errs["channel"], lambda: channel_mod.channel(*channel_args),
+                              lambda: channel_mod.channel_plain(*channel_args),
+                              channel_mod.work(channel_args[0], channel_args[3])))
     shapes = {"hpd_solve": tuple(gram.shape), "interp_fused": tuple(vals.shape),
               "interp": tuple(slot_args[0].shape) + (slot_args[-1],),
-              "nmse": tuple(h_main.shape), "pilot_select": tuple(u_main.shape)}
+              "nmse": tuple(h_main.shape), "pilot_select": tuple(u_main.shape),
+              "channel": tuple(channel_args[0].shape)}
     for kern in kernels:
         print(f"{kern['name']}: kernel {kern['ms']:.4f} ms ({kern['ms_min']:.4f}-"
               f"{kern['ms_max']:.4f} over 5 replays of a graph of 20), back-to-back calls "
@@ -3433,6 +3560,7 @@ def main():
     slower_than_replaced(dev)
     nmse_times(dev)
     pilot_select_times(dev)
+    channel_times(dev)
 
     # pipeline: fresh draws → simulate → estimate → NMSE, host clock
     gen = torch.Generator(device=dev).manual_seed(4)

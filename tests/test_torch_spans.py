@@ -20,6 +20,7 @@ from ce5g_torch import ExperimentConfig, MIMOConfig, OFDMConfig
 from ce5g_torch.estimators import estimate_batch
 from ce5g_torch.estimators.time_prior import auto_time_rank
 from ce5g_torch.ops import _build
+from ce5g_torch.ops import channel as channel_mod
 from ce5g_torch.ops import hpd_solve as hpd_mod
 from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as grid_mod
@@ -112,10 +113,13 @@ def test_timed_entry_spans():
         moved = profiling.counters - before
         names = [sp.name for sp in spans]
         parent = {sp.name: (spans[sp.parent].name if sp.parent >= 0 else None) for sp in spans}
-        assert names[:7] == ["physics.simulate", "physics.pattern", "ops.pilot_select",
-                             "ops.pilot_select.plain", "physics.jakes", "physics.response",
-                             "physics.received"]
-        assert {parent[n] for n in names[1:2] + names[4:7]} == {"physics.simulate"}
+        assert names[:8] == ["physics.simulate", "physics.pattern", "ops.pilot_select",
+                             "ops.pilot_select.plain", "physics.jakes", "physics.channel",
+                             "ops.channel", "ops.channel.plain"]
+        assert {parent[n] for n in names[1:2] + names[4:6]} == {"physics.simulate"}
+        assert parent["ops.channel"] == "physics.channel"
+        assert parent["ops.channel.plain"] == "ops.channel" and names.count("ops.channel") == 1
+        assert moved["ops.channel.plain"] == 1 and profiling.launches("channel", moved) == 0
         assert parent["ops.pilot_select"] == "physics.pattern"
         assert parent["ops.pilot_select.plain"] == "ops.pilot_select"
         assert names.count("ops.pilot_select") == 1
@@ -127,11 +131,11 @@ def test_timed_entry_spans():
         assert moved["ops.nmse.plain"] == 1 and profiling.launches("nmse", moved) == 0
         if estimator == "ls":
             kernel = "ops.interp_fused" if method == "linear" else "ops.interp"
-            assert names[7:-3] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel,
+            assert names[8:-3] == ["estimators.estimate", "ls.pilots", "ls.interpolate", kernel,
                                    f"{kernel}.plain"]
             assert parent[kernel] == "ls.interpolate" and parent[f"{kernel}.plain"] == kernel
         else:
-            assert names[7:-3] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
+            assert names[8:-3] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
                                    "mmse_full.time_prior", "mmse_full.gram", "mmse_full.solve",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
@@ -293,6 +297,26 @@ def test_nmse_counts_its_route(fake_card, route):
     assert profiling.launches("nmse", moved) == 1
 
 
+@pytest.mark.parametrize("route", channel_mod.ROUTES)
+def test_channel_counts_its_route(fake_card, route):
+    """Each call launches once by the route its TX grid's T extent gives,
+    in the span of its route inside one ``ops.channel`` span."""
+    b, s, r, t, p, k = 2, 14, 4, 4, 9, 599
+    gains = torch.zeros(b, s, r, t, p, dtype=torch.complex64).as_subclass(_OnCard)
+    grid = torch.zeros(b, s, 1 if route == "common" else t, k, dtype=torch.complex64)
+    noise = torch.zeros(b, s, r, k).as_subclass(_OnCard)
+    args = (torch.zeros(3, p, k, dtype=torch.complex64).as_subclass(_OnCard),
+            torch.zeros(b, dtype=torch.int64).as_subclass(_OnCard), grid.as_subclass(_OnCard),
+            torch.zeros(b).as_subclass(_OnCard), noise, noise)
+    assert channel_mod.plan(gains, grid).route == route
+    with profiling.recording() as spans:
+        moved = _moved(lambda: channel_mod.channel(gains, *args))
+    assert moved == {f"ops.channel.{route}": 1}
+    assert profiling.launches("channel", moved) == 1
+    assert [(sp.name, sp.parent) for sp in spans] == [
+        ("ops.channel", -1), (f"ops.channel.{route}", 0)]
+
+
 SELECT_ROUTE_SHAPES = {"block": (256, 14, 599), "cluster": (2, 140, 599),
                       "global": (1, 2, (select_mod.MAX_RESIDENT + 1) // 2)}
 
@@ -335,6 +359,14 @@ def _one_launch(kernel):
         h = torch.zeros(2, 14, 4, 4, 599, dtype=c64)
         pl = nmse_mod.plan_for(tuple(h.shape), h.stride(), h.stride(), None, 528)
         return pl.route, lambda: nmse_mod._launch(pl, h, h)
+    if kernel == "channel":
+        gains = torch.zeros(2, 14, 4, 4, 9, dtype=c64)
+        grid = torch.zeros(2, 14, 1, 599, dtype=c64)
+        noise = torch.zeros(2, 14, 4, 599)
+        pl = channel_mod.plan(gains, grid)
+        return pl.route, lambda: channel_mod._launch(
+            pl, gains, torch.zeros(3, 9, 599, dtype=c64), torch.zeros(2, dtype=torch.int64),
+            grid, torch.zeros(2), noise, noise)
     pl = select_mod.plan_for(4, 14 * 599, 132)
     return pl.route, lambda: select_mod._launch(
         pl, torch.zeros(4, 14 * 599), torch.full((4,), 838, dtype=torch.int32), 14, 599, 1024)

@@ -51,7 +51,7 @@ import torch
 
 from ..ops.hpd_solve import hpd_solve
 from ..utils.complexify import packed_complex_matmul
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, counters
 from .interpolate import interpolate, interpolate_grid
 from .ls import ls_at_pilots, masked_ls_grid
 from .time_prior import legendre_basis, time_correlation
@@ -281,8 +281,10 @@ def mmse_full_estimate(
 
     Spans (``utils.profiling``): ``mmse_full.ls_grid``, ``.time_prior``
     (J0, the Legendre basis, the Cholesky), ``.gram`` (E, D, gram, σ²,
-    Lᴴe), ``.solve`` (the two HPD solves and the float64 residual),
-    ``.reconstruct``.
+    Lᴴe) and inside it ``.profiles`` (E and D, each frame's own profile
+    selected), ``.solve`` (the two HPD solves and the float64 residual),
+    ``.reconstruct``. The counter ``mmse_full.profile_tables`` rises by
+    the number of profiles contracted at each call with ``f_tables``.
     """
     dev = rx_symbols.device
     out = rx_symbols.dtype  # of the HPD solve and the estimate
@@ -318,20 +320,22 @@ def mmse_full_estimate(
 
     with annotate("mmse_full.gram"):
         f = freq_matrix.to(wide)  # (B, P, K)
-        if f_tables is not None and profile_idx is not None:
-            pidx = torch.as_tensor(profile_idx, device=dev).long()
-            rows = torch.arange(b, device=dev)
-            c_num, p_num = f_tables.num_profiles, f_tables.num_paths
-            g2 = torch.cat([g.real, g.imag], dim=-1)  # (B, R, S, 2K)
-            e_all = _split_complex(g2 @ f_tables.w_e).reshape(b, r_rx, s, c_num, p_num)
-            e = e_all.permute(0, 3, 1, 2, 4)[rows, pidx]  # (B, R, S, P)
-            d_all = _split_complex(m @ f_tables.w_d).reshape(b, s, c_num, p_num, p_num)
-            d = d_all.permute(0, 2, 1, 3, 4)[rows, pidx]  # (B, S, P, P)
-        else:
-            fc = f.conj()
-            e = torch.einsum("brsk,bpk->brsp", g, fc)
-            a = fc[:, :, None, :] * f[:, None, :, :]  # (B, P, P, K)
-            d = torch.einsum("bsk,bpqk->bspq", m.to(g.dtype), a)
+        with annotate("mmse_full.profiles"):
+            if f_tables is not None and profile_idx is not None:
+                pidx = torch.as_tensor(profile_idx, device=dev).long()
+                rows = torch.arange(b, device=dev)
+                c_num, p_num = f_tables.num_profiles, f_tables.num_paths
+                counters["mmse_full.profile_tables"] += c_num
+                g2 = torch.cat([g.real, g.imag], dim=-1)  # (B, R, S, 2K)
+                e_all = _split_complex(g2 @ f_tables.w_e).reshape(b, r_rx, s, c_num, p_num)
+                e = e_all.permute(0, 3, 1, 2, 4)[rows, pidx]  # (B, R, S, P)
+                d_all = _split_complex(m @ f_tables.w_d).reshape(b, s, c_num, p_num, p_num)
+                d = d_all.permute(0, 2, 1, 3, 4)[rows, pidx]  # (B, S, P, P)
+            else:
+                fc = f.conj()
+                e = torch.einsum("brsk,bpk->brsp", g, fc)
+                a = fc[:, :, None, :] * f[:, None, :, :]  # (B, P, P, K)
+                d = torch.einsum("bsk,bpqk->bspq", m.to(g.dtype), a)
 
         # gram[(p,m),(q,n)] = T·√(w_p w_q)·Σ_s V[s,m]V[s,n]·D[s,p,q]
         mt = v.shape[-1]

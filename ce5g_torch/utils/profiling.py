@@ -38,6 +38,10 @@ samples/s, run_phase3_robust.py:232-234):
         tables built from a profile table);
       - ``kernels.loaded``: CUDA libraries loaded by ``ops._build.library``
         (built by nvcc first where needed);
+      - ``mmse_full.profile_tables``: profile tables that
+        ``mmse_full_estimate`` contracts every frame's E and D sums
+        against (all of them at each call with ``f_tables``, whatever
+        the batch's mix of profiles);
 
   * :func:`trace` — ``torch.profiler`` around a block, written as a
     TensorBoard trace (the ``tensorboard_trace_handler`` layout, which

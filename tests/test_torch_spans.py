@@ -136,16 +136,33 @@ def test_timed_entry_spans():
             assert parent[kernel] == "ls.interpolate" and parent[f"{kernel}.plain"] == kernel
         else:
             assert names[8:-3] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
-                                   "mmse_full.time_prior", "mmse_full.gram", "mmse_full.solve",
+                                   "mmse_full.time_prior", "mmse_full.gram",
+                                   "mmse_full.profiles", "mmse_full.solve",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "mmse_full.reconstruct"]
+            assert parent["mmse_full.profiles"] == "mmse_full.gram"
+            assert moved["mmse_full.profile_tables"] == 3  # EPA, EVA, ETU
             assert [spans[sp.parent].name for sp in spans if sp.name == "ops.hpd_solve"] == [
                 "mmse_full.solve"] * 2
             assert [spans[sp.parent].name for sp in spans
                     if sp.name == "ops.hpd_solve.plain"] == ["ops.hpd_solve"] * 2
         stages = [sp for sp in spans if sp.parent >= 0 and spans[sp.parent].parent == -1]
         assert all(a.end_ns <= b.start_ns for a, b in zip(stages, stages[1:]))
+
+
+@pytest.mark.parametrize("mix", [(0, 0, 0), (2, 2, 2), (0, 1, 2)])
+def test_profile_tables_rise_by_every_profile(mix):
+    """``mmse_full`` contracts every frame against all three profile tables,
+    whatever profiles the batch holds: the counter rises by 3 a call."""
+    cfg = _cfg()
+    draws, params = _inputs(cfg)
+    params = params._replace(profile_idx=torch.tensor(mix, dtype=torch.int32))
+    frames = simulate_batch(draws, params, cfg=cfg, device=CPU)
+    before = profiling.counters.copy()
+    for _ in range(2):
+        estimate_batch(frames, cfg=cfg, estimator="mmse_full", device=CPU)
+    assert (profiling.counters - before)["mmse_full.profile_tables"] == 6
 
 
 def test_spans_share_the_profiler_clock(tmp_path):

@@ -12,12 +12,13 @@ import torch
 
 from ..config import ExperimentConfig
 from ..device import resolve_device
+from ..ops.profile_gram import build_f_tables
 from ..physics.profiles import ProfileTable, cached
 from ..physics.simulate import Frame, FrameParams, table_for, table_tensors
 from ..utils.profiling import annotate
 from .blind import device_tables_for, estimate_priors
 from .ls import ls_estimate
-from .mmse import build_f_tables, mmse_diag_estimate, mmse_full_estimate
+from .mmse import mmse_diag_estimate, mmse_full_estimate
 from .time_prior import auto_time_rank
 
 

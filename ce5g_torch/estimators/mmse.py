@@ -25,9 +25,10 @@ Port of ``ce5g_tpu.estimators.mmse``.
    solves the same filter by the push-through identity, Ĥ = (V⊗√w)z·F/√T
    with z the HPD solve's solution, which has no such difference. It
    assembles the Woodbury system in float64 and refines the kernel's
-   solution once: in float32 the rounding of E and D (whose matmuls' order
-   depends on the batch's rows on the card) reached a frame's estimate
-   amplified by the system's condition.
+   solution once: in float32 the rounding of E and D reached a frame's
+   estimate amplified by the system's condition. On the card E and D come
+   from ``ops.profile_gram``, whose sums run in an order fixed by the
+   shapes, so that a frame's estimate does not depend on its batch.
 
 The Wiener-prior API (``WienerPrior``, ``build_wiener_prior``,
 ``wiener_solve``, ``wiener_reconstruct``) is the same filter in its
@@ -46,12 +47,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..ops.hpd_solve import hpd_solve
+from ..ops.profile_gram import FTables, profile_gram
 from ..utils.complexify import packed_complex_matmul
-from ..utils.profiling import annotate, counters
+from ..utils.profiling import annotate
 from .interpolate import interpolate, interpolate_grid
 from .ls import ls_at_pilots, masked_ls_grid
 from .time_prior import legendre_basis, time_correlation
@@ -179,58 +180,6 @@ def estimate_covariance(h_ls):
     return hc.mH @ hc / max(h.shape[0] - 1, 1)
 
 
-class FTables(NamedTuple):
-    """Packed all-profile delay→bin tables for the E and D contractions."""
-
-    w_e: torch.Tensor  # (2K, 2·C·P) float64
-    w_d: torch.Tensor  # (K, 2·C·P·P) float64
-    num_profiles: int
-    num_paths: int
-
-
-def build_f_tables(f_table: np.ndarray, device) -> FTables:
-    """Build the static tables of ``mmse_full_estimate`` from the
-    (C, P, K) complex delay→bin table of every profile (mmse.py:339-364):
-
-        e = Σ_k g·conj(F)        → [Re g, Im g] @ w_e
-        d = Σ_k m·conj(F_p)·F_q  → m @ w_d
-
-    They depend only on the profile table: build them once per table and
-    device (``estimators.api`` caches them on the table).
-    """
-    ft = np.asarray(f_table)
-    c_num, p_num, k_num = ft.shape
-    frt = np.real(ft).transpose(2, 0, 1).reshape(k_num, c_num * p_num)
-    fit = np.imag(ft).transpose(2, 0, 1).reshape(k_num, c_num * p_num)
-    # e = Σ_k g·conj(F): Re = gr@fr + gi@fi ; Im = gi@fr − gr@fi
-    w_e = np.concatenate(
-        [
-            np.concatenate([frt, -fit], axis=1),  # gr rows
-            np.concatenate([fit, frt], axis=1),  # gi rows
-        ],
-        axis=0,
-    )
-    a_re = np.einsum("cpk,cqk->kcpq", np.real(ft), np.real(ft)) + np.einsum(
-        "cpk,cqk->kcpq", np.imag(ft), np.imag(ft)
-    )
-    a_im = np.einsum("cpk,cqk->kcpq", np.real(ft), np.imag(ft)) - np.einsum(
-        "cpk,cqk->kcpq", np.imag(ft), np.real(ft)
-    )
-    w_d = np.concatenate([a_re.reshape(k_num, -1), a_im.reshape(k_num, -1)], axis=1)
-    return FTables(
-        torch.as_tensor(w_e, dtype=torch.float64, device=device),
-        torch.as_tensor(w_d, dtype=torch.float64, device=device),
-        c_num,
-        p_num,
-    )
-
-
-def _split_complex(x: torch.Tensor) -> torch.Tensor:
-    """(..., 2N) real [re | im] → (..., N) complex."""
-    re, im = x.chunk(2, dim=-1)
-    return torch.complex(re, im)
-
-
 def mmse_full_estimate(
     rx_symbols,
     tx_grid,
@@ -253,11 +202,12 @@ def mmse_full_estimate(
         freq_matrix: (B, P, K) complex delay→bin matrix of each frame's
             profile; amp: (B, P) path amplitudes.
         time_rank: rank m of the Legendre time prior, or None for full rank.
-        f_tables, profile_idx: the packed all-profile tables and each
-            frame's profile index. With them the E and D contractions are
-            one real matmul each against the static tables followed by a
-            per-frame profile select (mmse.py:324-368); without them they
-            are per-frame contractions with ``freq_matrix`` (:369-376).
+        f_tables, profile_idx: the profile tables
+            (``ops.profile_gram.build_f_tables``) and each frame's profile
+            index. With them E and D are ``ops.profile_gram``'s sums, taken
+            from the received grid against each frame's own profile (the
+            ``ce5g_tpu`` mmse.py:324-368 route); without them the masked LS
+            grid is formed and contracted with ``freq_matrix`` (:369-376).
 
     The HPD solve gives z = gram⁻¹·Lᴴe with L = √T·(V⊗√w), gram = σ²I +
     LᴴDL. The JAX package then computes x = (e − DLz)/σ² and Ĥ =
@@ -279,21 +229,21 @@ def mmse_full_estimate(
         ``freq_matrix``, ``f_tables=None``) run the same path in float64,
         the reference that the card's float32 result is held to.
 
-    Spans (``utils.profiling``): ``mmse_full.ls_grid``, ``.time_prior``
-    (J0, the Legendre basis, the Cholesky), ``.gram`` (E, D, gram, σ²,
-    Lᴴe) and inside it ``.profiles`` (E and D, each frame's own profile
-    selected), ``.solve`` (the two HPD solves and the float64 residual),
-    ``.reconstruct``. The counter ``mmse_full.profile_tables`` rises by
-    the number of profiles contracted at each call with ``f_tables``.
+    Spans (``utils.profiling``): ``mmse_full.ls_grid`` (without
+    ``f_tables``), ``.time_prior`` (J0, the Legendre basis, the Cholesky),
+    ``.gram`` (E, D, gram, σ², Lᴴe) and inside it ``.profiles`` (E and D:
+    ``ops.profile_gram`` with ``f_tables``), ``.solve`` (the two HPD solves
+    and the float64 residual), ``.reconstruct``.
     """
     dev = rx_symbols.device
     out = rx_symbols.dtype  # of the HPD solve and the estimate
     real, wide = torch.float64, torch.complex128  # of the Woodbury system
-    with annotate("mmse_full.ls_grid"):
-        m = pilot_mask.to(real)  # (B, S, K)
-        b, s, k = m.shape
-        g = masked_ls_grid(rx_symbols, tx_grid, m).to(wide)  # (B, R, S, K)
-    r_rx = g.shape[1]
+    b, s, r_rx, k = rx_symbols.shape
+    by_profile = f_tables is not None and profile_idx is not None
+    if not by_profile:
+        with annotate("mmse_full.ls_grid"):
+            m = pilot_mask.to(real)  # (B, S, K)
+            g = masked_ls_grid(rx_symbols, tx_grid, m).to(wide)  # (B, R, S, K)
 
     n_paths = amp.shape[-1]
     w_path = 0.5 * amp.to(real) ** 2  # (B, P); Jakes E|h|² = ½
@@ -319,19 +269,13 @@ def mmse_full_estimate(
                 rt + ridge[:, None, None] * torch.eye(s, dtype=real, device=dev))
 
     with annotate("mmse_full.gram"):
-        f = freq_matrix.to(wide)  # (B, P, K)
         with annotate("mmse_full.profiles"):
-            if f_tables is not None and profile_idx is not None:
+            if by_profile:
                 pidx = torch.as_tensor(profile_idx, device=dev).long()
-                rows = torch.arange(b, device=dev)
-                c_num, p_num = f_tables.num_profiles, f_tables.num_paths
-                counters["mmse_full.profile_tables"] += c_num
-                g2 = torch.cat([g.real, g.imag], dim=-1)  # (B, R, S, 2K)
-                e_all = _split_complex(g2 @ f_tables.w_e).reshape(b, r_rx, s, c_num, p_num)
-                e = e_all.permute(0, 3, 1, 2, 4)[rows, pidx]  # (B, R, S, P)
-                d_all = _split_complex(m @ f_tables.w_d).reshape(b, s, c_num, p_num, p_num)
-                d = d_all.permute(0, 2, 1, 3, 4)[rows, pidx]  # (B, S, P, P)
+                e, d = profile_gram(rx_symbols.contiguous(), tx_grid, pilot_mask.contiguous(),
+                                    f_tables, pidx)
             else:
+                f = freq_matrix.to(wide)  # (B, P, K)
                 fc = f.conj()
                 e = torch.einsum("brsk,bpk->brsp", g, fc)
                 a = fc[:, :, None, :] * f[:, None, :, :]  # (B, P, P, K)

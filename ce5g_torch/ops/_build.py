@@ -38,7 +38,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNELS = ("hpd_solve", "interp_fused", "interp", "nmse", "pilot_select", "channel")
+KERNELS = ("hpd_solve", "interp_fused", "interp", "nmse", "pilot_select", "channel",
+           "profile_gram")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[Tuple[str, str], Callable] = {}  # (kernel, symbol) → bound C function

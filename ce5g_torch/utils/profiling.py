@@ -27,9 +27,10 @@ samples/s, run_phase3_robust.py:232-234):
         ``global``), ``ops.interp.<route>`` (``frame``, ``tile``),
         ``ops.nmse.<route>`` (``pairs``, ``strided``),
         ``ops.pilot_select.<route>`` (``block``, ``cluster``, ``global``),
-        ``ops.channel.<route>`` (``common``, ``per_tx``): kernel launches
-        by route (an interpolation route, ``nmse`` and ``channel`` may be
-        two CUDA launches); ``ops.<kernel>.plain``: calls on CPU
+        ``ops.channel.<route>`` (``common``, ``per_tx``),
+        ``ops.profile_gram.<route>`` (``whole``, ``split``): kernel
+        launches by route (an interpolation route, ``nmse`` and ``channel``
+        may be two CUDA launches); ``ops.<kernel>.plain``: calls on CPU
         tensors, which run the plain PyTorch version (:func:`launches`
         sums a kernel's routes);
       - ``time_rank.computed``: runs of
@@ -39,9 +40,10 @@ samples/s, run_phase3_robust.py:232-234):
       - ``kernels.loaded``: CUDA libraries loaded by ``ops._build.library``
         (built by nvcc first where needed);
       - ``mmse_full.profile_tables``: profile tables that
-        ``mmse_full_estimate`` contracts every frame's E and D sums
-        against (all of them at each call with ``f_tables``, whatever
-        the batch's mix of profiles);
+        ``ops.profile_gram`` contracts every frame's E and D sums against
+        (1 a kernel call, each frame against its own profile; all of them
+        at each call of the plain version, whatever the batch's mix of
+        profiles);
 
   * :func:`trace` — ``torch.profiler`` around a block, written as a
     TensorBoard trace (the ``tensorboard_trace_handler`` layout, which

@@ -4,7 +4,7 @@
     python3 path/to/chip_smoke.py      (from any directory)
 
 Phases, one line each; any failure exits non-zero:
-  1. setup: the card's name and power limit; build the six CUDA kernels;
+  1. setup: the card's name and power limit; build the seven CUDA kernels;
   2. the HPD-solve kernel against its plain PyTorch version, on random
      systems and on the hard cases of ce5g_torch.ops.hard_cases;
   3. the grid-interpolation kernel against its plain PyTorch version, at
@@ -42,7 +42,10 @@ Phases, one line each; any failure exits non-zero:
      version, the channel and the received grid (``channel``) at the three
      benchmark configurations' batches by both routes, held to the plain
      chain and to float64, twice to the same bits, and timed beside its
-     bound and the plain chain, and pipeline frames/s;
+     bound and the plain chain, the Wiener's pilot sums (``profile_gram``)
+     at the four benchmark configurations' batches, held to the plain
+     version, a frame's sums the same bits alone and in its batch, and timed
+     beside its bound and the plain version, and pipeline frames/s;
   8. where a batch goes: a torch.profiler trace of three warm batches of
      the pipeline for 'mmse_full', 'ls' and 'ls:cubic' — the ten device
      operations with the most time, the device's idle share of the window
@@ -770,6 +773,7 @@ class capturing:
         import ce5g_torch.physics.pilots as pilots_mod
 
         self.sites = [(mmse_est, "hpd_solve", "hpd_solve"),
+                      (mmse_est, "profile_gram", "profile_gram"),
                       (interp_est, "interpolate_grid_fused", "interp_fused"),
                       (interp_est, "interpolate_slots", "interp"),
                       (nmse_mod, "nmse", "nmse"),
@@ -994,6 +998,7 @@ def hold_against_plain(path, captured):
     from ce5g_torch.ops import interp_fused as interp_mod
     from ce5g_torch.ops import nmse as nmse_mod
     from ce5g_torch.ops import pilot_select as select_mod
+    from ce5g_torch.ops import profile_gram as gram_mod
 
     errs, parts = {}, []
     if "hpd_solve" in captured:
@@ -1055,6 +1060,16 @@ def hold_against_plain(path, captured):
                     f"{path} channel within {CHANNEL_H_LIMIT:g} (H) and {CHANNEL_RX_LIMIT:g} "
                     f"(rx) of the plain chain")
         del h, rx, hp, rxp
+    if "profile_gram" in captured:
+        args = captured["profile_gram"]
+        (e, d), (ep, dp) = gram_mod.profile_gram(*args), gram_mod.profile_gram_plain(*args)
+        e_e, e_d = rel_max(e, ep), rel_max(d, dp)
+        errs["profile_gram"] = max(float((e - ep).abs().max()), float((d - dp).abs().max()))
+        parts.append(f"profile_gram {tuple(args[0].shape)} {gram_mod.plan(args[0], args[3]).route} "
+                     f"max error over the rms vs plain: E {e_e:.2e}, D {e_d:.2e}")
+        fail_unless(max(e_e, e_d) <= PROFILE_GRAM_LIMIT,
+                    f"{path} profile_gram within {PROFILE_GRAM_LIMIT:g} of its plain version")
+        del e, d, ep, dp
     print(f"{path} inputs, kernel vs plain: " + "; ".join(parts))
     return errs
 
@@ -1274,6 +1289,98 @@ def channel_times(dev):
             fail_unless(ms[0] < plain[0], f"channel at {shape} {route} faster than the plain chain")
             del args
             torch.cuda.empty_cache()
+
+
+#: (B, S, R, K) of the benchmark's configurations: bench_4x4, nr100_4x64,
+#: lte_frame_etu300_4x4, factory_2x2 (each frame its own profile there)
+PROFILE_GRAM_SHAPES = ((256, 14, 4, 599), (64, 14, 64, 3275), (512, 140, 4, 599),
+                       (2048, 14, 2, 599))
+#: E and D of the kernel against the plain version, max error over the rms:
+#: both add the same terms in float64 in other orders, and the kernel's
+#: quotients may round by an ulp where the two divisions contract otherwise
+PROFILE_GRAM_LIMIT = 1e-6
+
+
+def profile_gram_inputs(gen, dev, b, s, r, k):
+    """The pilot sums' inputs at one shape: a received grid of normals, a
+    unit TX grid, 10% pilots (1-10% a frame at factory_2x2's), ETU frames
+    (each frame its own profile at factory_2x2's) and the configuration's
+    profile tables; and each frame's live paths and pilots for the bound."""
+    import torch
+    from ce5g_torch import ExperimentConfig, MIMOConfig, OFDMConfig
+    from ce5g_torch.ops import profile_gram as gram_mod
+    from ce5g_torch.physics.profiles import PROFILE_INDEX
+    from ce5g_torch.physics.simulate import table_for, table_tensors
+
+    fft = 1 << (k + 1).bit_length()
+    cfg = ExperimentConfig(ofdm=OFDMConfig(fft_size=fft, num_symbols=s, useful_subcarriers=k + 1),
+                           mimo=MIMOConfig(num_tx=r, num_rx=r))
+    table = table_for(cfg)
+    amp, _ = table_tensors(table, cfg, dev)
+    tables = gram_mod.build_f_tables(table.freq_response, dev)
+    mixed = (b, s, r, k) == PROFILE_GRAM_SHAPES[-1]
+    if mixed:
+        pidx = torch.randint(0, tables.num_profiles, (b,), generator=gen, device=dev)
+        density = torch.tensor([0.01, 0.02, 0.05, 0.10], device=dev)[
+            torch.randint(0, 4, (b,), generator=gen, device=dev)]
+    else:
+        pidx = torch.full((b,), PROFILE_INDEX["ETU"], dtype=torch.int64, device=dev)
+        density = torch.full((b,), 0.10, device=dev)
+    rx = torch.complex(torch.randn(b, s, r, k, generator=gen, device=dev),
+                       torch.randn(b, s, r, k, generator=gen, device=dev))
+    tx = torch.exp(2j * math.pi * torch.rand(b, s, k, generator=gen, device=dev)).to(
+        torch.complex64)
+    mask = (torch.rand(b, s, k, generator=gen, device=dev) < density[:, None, None]).float()
+    paths = (amp[pidx] > 0).sum(-1).tolist()
+    pilots = mask.sum((1, 2)).long().tolist()
+    return (rx, tx, mask, tables, pidx), paths, pilots
+
+
+def profile_gram_times(dev):
+    """The Wiener's pilot sums at each benchmark configuration's batch:
+    against the plain version (E and D within PROFILE_GRAM_LIMIT of the
+    rms), a few frames summed alone to the same bits as in their batch, and
+    timed beside the bound of ``work/profile_gram.py``'s count and the plain
+    version (back to back), which it must beat. The first, second and last
+    frame of each batch are summed again alone."""
+    import torch
+    from ce5g_torch.ops import profile_gram as gram_mod
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for shape in PROFILE_GRAM_SHAPES:
+        args, paths, pilots = profile_gram_inputs(gen, dev, *shape)
+        rx, tx, mask, tables, pidx = args
+        pl = gram_mod.plan(rx, tables)
+        e, d = gram_mod.profile_gram(*args)
+        ep, dp = gram_mod.profile_gram_plain(*args)
+        e_e, e_d = rel_max(e, ep), rel_max(d, dp)
+        del ep, dp
+        alone = True
+        for i in (0, 1, shape[0] - 1):
+            one = gram_mod.profile_gram(rx[i:i + 1], tx[i:i + 1], mask[i:i + 1], tables,
+                                        pidx[i:i + 1])
+            alone = alone and torch.equal(one[0][0], e[i]) and torch.equal(one[1][0], d[i])
+        del e, d
+        torch.cuda.empty_cache()
+        ms = graph_ms(lambda: gram_mod.profile_gram(*args))
+        plain = cuda_ms(lambda: gram_mod.profile_gram_plain(*args), rounds=3, iters=5)
+        torch.cuda.empty_cache()
+        b, s, r, k = shape
+        bound_ms, by = bound(*gram_mod.work(s, r, k, paths, pilots))
+        print(f"profile_gram at {shape}: kernel {ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}), bound "
+              f"{bound_ms:.4f} ms ({by}), {100.0 * bound_ms / ms[0]:.1f}% of it; plain "
+              f"{plain[0]:.4f} ms; route {pl.route}, {pl.groups} tasks a row of {pl.rows} "
+              f"antennas, {pl.round_rows} a round, {pl.strides} threads a path, "
+              f"{pl.chunk} pilots staged, {pl.shared} B shared, {pl.tasks} tasks; pilots a frame "
+              f"{min(pilots)}-{max(pilots)}, paths {min(paths)}-{max(paths)}; max error over "
+              f"the rms vs plain E {e_e:.2e}, D {e_d:.2e}; frames alone "
+              f"{'the same bits' if alone else 'DIFFER'}")
+        fail_unless(max(e_e, e_d) <= PROFILE_GRAM_LIMIT,
+                    f"profile_gram at {shape} within {PROFILE_GRAM_LIMIT:g} of its plain version")
+        fail_unless(alone, f"profile_gram at {shape}: a frame's sums alone equal its batch's")
+        fail_unless(ms[0] < plain[0], f"profile_gram at {shape} faster than its plain version")
+        del args, rx, tx, mask
+        torch.cuda.empty_cache()
 
 
 def slower_than_replaced(dev):
@@ -2371,7 +2478,8 @@ def evaluation_phase(dev, card, serving_results, tune_sets):
         fail_unless(all(n > 0 for n in launches.values()),
                     f"every kernel launched on the evaluation path: {launches}")
         # (e) draws regular pilots: no scattered selection
-        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused", "pilot_select", "channel"}
+        fail_unless(set(cap.args) == {"hpd_solve", "interp_fused", "pilot_select", "channel",
+                                      "profile_gram"}
                     and set(cap_regular.args) == set(launches) - {"pilot_select"},
                     f"the inputs captured: (a)-(d) {sorted(cap.args)}, (e) {sorted(cap_regular.args)}")
         hold_against_plain("evaluation path (a)-(d)", cap.args)
@@ -3453,6 +3561,7 @@ def main():
     from ce5g_torch.ops import nmse as nmse_mod
     from ce5g_torch.ops import channel as channel_mod
     from ce5g_torch.ops import pilot_select as select_mod
+    from ce5g_torch.ops import profile_gram as gram_mod
 
     wall_t0 = time.time()
     dev = resolve_device("cuda")
@@ -3524,10 +3633,21 @@ def main():
                               main_errs["channel"], lambda: channel_mod.channel(*channel_args),
                               lambda: channel_mod.channel_plain(*channel_args),
                               channel_mod.work(channel_args[0], channel_args[3])))
+    gram_args = captured["profile_gram"]
+    _, gram_s, gram_r, gram_k = gram_args[0].shape
+    gram_pilots = gram_args[2].sum((1, 2)).long().tolist()
+    kernels.append(kernel_row("profile_gram", "ce5g_torch/csrc/profile_gram.cu", None,
+                              launches["profile_gram"], main_errs["profile_gram"],
+                              lambda: gram_mod.profile_gram(*gram_args),
+                              lambda: gram_mod.profile_gram_plain(*gram_args),
+                              gram_mod.work(gram_s, gram_r, gram_k,
+                                            [gram_args[3].num_paths] * len(gram_pilots),
+                                            gram_pilots)))
     shapes = {"hpd_solve": tuple(gram.shape), "interp_fused": tuple(vals.shape),
               "interp": tuple(slot_args[0].shape) + (slot_args[-1],),
               "nmse": tuple(h_main.shape), "pilot_select": tuple(u_main.shape),
-              "channel": tuple(channel_args[0].shape)}
+              "channel": tuple(channel_args[0].shape),
+              "profile_gram": tuple(gram_args[0].shape)}
     for kern in kernels:
         print(f"{kern['name']}: kernel {kern['ms']:.4f} ms ({kern['ms_min']:.4f}-"
               f"{kern['ms_max']:.4f} over 5 replays of a graph of 20), back-to-back calls "
@@ -3561,6 +3681,7 @@ def main():
     nmse_times(dev)
     pilot_select_times(dev)
     channel_times(dev)
+    profile_gram_times(dev)
 
     # pipeline: fresh draws → simulate → estimate → NMSE, host clock
     gen = torch.Generator(device=dev).manual_seed(4)

@@ -26,6 +26,7 @@ from ce5g_torch.ops import interp as slot_mod
 from ce5g_torch.ops import interp_fused as grid_mod
 from ce5g_torch.ops import nmse as nmse_mod
 from ce5g_torch.ops import pilot_select as select_mod
+from ce5g_torch.ops import profile_gram as gram_mod
 from ce5g_torch.physics import FrameParams, draw_frames, simulate_batch
 from ce5g_torch.physics.profiles import cached
 from ce5g_torch.physics.simulate import table_for
@@ -135,14 +136,19 @@ def test_timed_entry_spans():
                                    f"{kernel}.plain"]
             assert parent[kernel] == "ls.interpolate" and parent[f"{kernel}.plain"] == kernel
         else:
-            assert names[8:-3] == ["estimators.estimate", "mmse_full.rank", "mmse_full.ls_grid",
+            assert names[8:-3] == ["estimators.estimate", "mmse_full.rank",
                                    "mmse_full.time_prior", "mmse_full.gram",
-                                   "mmse_full.profiles", "mmse_full.solve",
+                                   "mmse_full.profiles", "ops.profile_gram",
+                                   "ops.profile_gram.plain", "mmse_full.solve",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "ops.hpd_solve", "ops.hpd_solve.plain",
                                    "mmse_full.reconstruct"]
             assert parent["mmse_full.profiles"] == "mmse_full.gram"
-            assert moved["mmse_full.profile_tables"] == 3  # EPA, EVA, ETU
+            assert parent["ops.profile_gram"] == "mmse_full.profiles"
+            assert parent["ops.profile_gram.plain"] == "ops.profile_gram"
+            assert moved["ops.profile_gram.plain"] == 1
+            assert profiling.launches("profile_gram", moved) == 0
+            assert moved["mmse_full.profile_tables"] == 3  # the plain version: EPA, EVA, ETU
             assert [spans[sp.parent].name for sp in spans if sp.name == "ops.hpd_solve"] == [
                 "mmse_full.solve"] * 2
             assert [spans[sp.parent].name for sp in spans
@@ -153,8 +159,10 @@ def test_timed_entry_spans():
 
 @pytest.mark.parametrize("mix", [(0, 0, 0), (2, 2, 2), (0, 1, 2)])
 def test_profile_tables_rise_by_every_profile(mix):
-    """``mmse_full`` contracts every frame against all three profile tables,
-    whatever profiles the batch holds: the counter rises by 3 a call."""
+    """On the CPU ``ops.profile_gram``'s plain version contracts every frame
+    against all three profile tables, whatever profiles the batch holds: the
+    counter rises by 3 a call (by 1 a kernel call:
+    ``test_profile_gram_counts_its_route``)."""
     cfg = _cfg()
     draws, params = _inputs(cfg)
     params = params._replace(profile_idx=torch.tensor(mix, dtype=torch.int32))
@@ -334,6 +342,34 @@ def test_channel_counts_its_route(fake_card, route):
         ("ops.channel", -1), (f"ops.channel.{route}", 0)]
 
 
+#: (B, S, R, K) a route's plan takes: all of a row's antennas a block, or shared
+GRAM_ROUTE_SHAPES = {"whole": (2048, 14, 2, 599), "split": (2, 14, 4, 599)}
+
+
+def _gram_inputs(b, s, r, k):
+    c64 = torch.complex64
+    tables = gram_mod.FTables(None, None, 3, 9, torch.zeros(3, k, 9, dtype=c64))
+    return (torch.zeros(b, s, r, k, dtype=c64), torch.zeros(b, s, k, dtype=c64),
+            torch.zeros(b, s, k), tables, torch.zeros(b, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("route", gram_mod.ROUTES)
+def test_profile_gram_counts_its_route(fake_card, route):
+    """Each call launches once by the route its plan gives, in the span of
+    its route inside one ``ops.profile_gram`` span, and contracts each frame
+    against one profile table."""
+    rx, tx, mask, tables, pidx = _gram_inputs(*GRAM_ROUTE_SHAPES[route])
+    on_card = [x.as_subclass(_OnCard) for x in (rx, tx, mask, tables.freq_kp, pidx)]
+    tables = tables._replace(freq_kp=on_card[3])
+    assert gram_mod.plan(rx, tables).route == route
+    with profiling.recording() as spans:
+        moved = _moved(lambda: gram_mod.profile_gram(*on_card[:3], tables, on_card[4]))
+    assert moved == {f"ops.profile_gram.{route}": 1, "mmse_full.profile_tables": 1}
+    assert profiling.launches("profile_gram", moved) == 1
+    assert [(sp.name, sp.parent) for sp in spans] == [
+        ("ops.profile_gram", -1), (f"ops.profile_gram.{route}", 0)]
+
+
 SELECT_ROUTE_SHAPES = {"block": (256, 14, 599), "cluster": (2, 140, 599),
                       "global": (1, 2, (select_mod.MAX_RESIDENT + 1) // 2)}
 
@@ -384,6 +420,10 @@ def _one_launch(kernel):
         return pl.route, lambda: channel_mod._launch(
             pl, gains, torch.zeros(3, 9, 599, dtype=c64), torch.zeros(2, dtype=torch.int64),
             grid, torch.zeros(2), noise, noise)
+    if kernel == "profile_gram":
+        rx, tx, mask, tables, pidx = _gram_inputs(2, 14, 4, 599)
+        pl = gram_mod.plan(rx, tables)
+        return pl.route, lambda: gram_mod._launch(pl, rx, tx, mask, tables.freq_kp, pidx)
     pl = select_mod.plan_for(4, 14 * 599, 132)
     return pl.route, lambda: select_mod._launch(
         pl, torch.zeros(4, 14 * 599), torch.full((4,), 838, dtype=torch.int32), 14, 599, 1024)

@@ -62,12 +62,17 @@ def time_correlation(doppler_hz: torch.Tensor, num_symbols: int,
     )
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def legendre_qr(num_symbols: int, rank: int) -> np.ndarray:
     """The orthonormal basis of the Legendre polynomials of degree < m over
     S equispaced points of [−1, 1]: Q of the QR of their Vandermonde,
     (S, m) float64. One array per (S, m), shared by every caller: read
-    it, never write it."""
+    it, never write it. :func:`auto_time_rank` walks m = 2, 3, … every
+    batch (66 keys over a 280-symbol frame), and an LRU cache smaller than
+    a search misses on every lookup of it; the keys are few and fixed by
+    the configuration, so none is dropped. Each QR built counts
+    ``time_prior.legendre_built``."""
+    counters["time_prior.legendre_built"] += 1
     x = np.linspace(-1.0, 1.0, num_symbols)
     q, _ = np.linalg.qr(np.polynomial.legendre.legvander(x, rank - 1))
     return q

@@ -35,6 +35,8 @@ samples/s, run_phase3_robust.py:232-234):
         sums a kernel's routes);
       - ``time_rank.computed``: runs of
         ``estimators.time_prior.auto_time_rank``'s host loop;
+      - ``time_prior.legendre_built``: Legendre QRs built on the host
+        (misses of ``estimators.time_prior.legendre_qr``'s cache);
       - ``tables.built``: misses of ``physics.profiles.cached`` (device
         tables built from a profile table);
       - ``kernels.loaded``: CUDA libraries loaded by ``ops._build.library``

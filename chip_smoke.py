@@ -451,8 +451,9 @@ ENVELOPE_HPD_CASES = ("r9", "r16", "r64", "r64_n128", "not_pd_r16", "n129", "n16
 # The HPD solve past n = 128 timed route by route (phase 19) on the systems
 # of the two LTE-frame configurations (n = 135, 171) and on random systems
 # of mmse_full's size over one LTE radio frame at 500 Hz (time rank 27,
-# n = 243) and at n = 300.
-ENVELOPE_HPD_SHAPES = ((32, 243, 4), (32, 300, 4))
+# n = 243), at n = 300, and at the benchmark's whole NR frame at 500 km/h
+# (time rank 67, n = 603, the blocked route; one wave of 128 systems).
+ENVELOPE_HPD_SHAPES = ((32, 243, 4), (32, 300, 4), (128, 603, 4))
 
 
 def quiet(*_):
@@ -3381,7 +3382,8 @@ def envelope_hard_cases(dev):
 def hpd_cluster_times(problems):
     """The HPD solve on each {label: (gram, rhs)} of ``problems`` (n > 128):
     the plan's route, every other cluster size with an instance (one block
-    where it has one), the blocked kernel the cluster route replaced, the
+    where it has one), the blocked kernel the cluster route replaced (the
+    plan's route past every instance), the
     plain version, torch.linalg.solve and the bound (kernels: a graph of
     20, median of 5 replays; plain and library back to back). Each kernel
     is held to the plain version first, and the plan's route may be no
@@ -3395,7 +3397,7 @@ def hpd_cluster_times(problems):
         chosen = hpd_mod.plan(n, r)
         plans = {f"cluster {c}": hpd_mod._plan(n, r, c) for c in hpd_mod.CLUSTER_SIZES
                  if hpd_mod._instance(n, r, c) is not None}
-        plans["blocked"] = hpd_mod.Plan("blocked")
+        plans["blocked"] = chosen if chosen.route == "blocked" else hpd_mod.Plan("blocked")
         times, parts = {}, []
         for label, pl in plans.items():
             err = rel(hpd_mod._launch(pl, gram, rhs), ref)

@@ -159,8 +159,10 @@ def test_simulate_batch_runs_one_channel_call():
     assert frames.channel.is_contiguous() and frames.rx_symbols.is_contiguous()
 
 
-# (B, S, R, T, K) of the benchmark's cells: bench_4x4, nr100_4x64, lte_frame_etu300_4x4
-BENCH_SHAPES = ((256, 14, 4, 4, 599), (64, 14, 64, 4, 3275), (512, 140, 4, 4, 599))
+# (B, S, R, T, K) of the benchmark's cells: bench_4x4, nr100_4x64, lte_frame_etu300_4x4,
+# nr_frame_hst500_4x4
+BENCH_SHAPES = ((256, 14, 4, 4, 599), (64, 14, 64, 4, 3275), (512, 140, 4, 4, 599),
+                (128, 280, 4, 4, 611))
 
 
 @pytest.mark.parametrize("shape", BENCH_SHAPES)
@@ -174,8 +176,8 @@ def test_plan_fits_the_kernel(shape, route):
     assert pl.group * t * 8 * ch.MAX_KERNEL_PATHS <= ch.MAX_STAGED
     assert pl.group * t <= ch.BLOCK_ROWS and pl.chunks == -(-(s * r) // pl.group)
     assert pl.grid == b * pl.chunks * pl.tiles < 2 ** 31
-    # few idle threads along K: 128 threads × 13 tiles at K = 3275, 160 × 2 at 599
-    assert (pl.threads, pl.tiles) == {599: (160, 2), 3275: (128, 13)}[k]
+    # few idle threads along K: 128 threads × 13 tiles at K = 3275, 160 × 2 at 599 and 611
+    assert (pl.threads, pl.tiles) == {599: (160, 2), 611: (160, 2), 3275: (128, 13)}[k]
 
 
 def _stores(k, threads, tiles, odd):

@@ -67,6 +67,7 @@ PLANS = {
     "bench_4x4": ((256, 14 * 599), ("block", 1, 1, 2098, 512, 256)),
     "nr100_4x64": ((64, 14 * 3275), ("cluster", 2, 1, 5732, 1024, 128)),
     "lte_frame_etu300_4x4": ((512, 140 * 599), ("cluster", 2, 1, 10483, 1024, 1024)),
+    "nr_frame_hst500_4x4": ((128, 280 * 611), ("cluster", 4, 1, 10693, 1024, 512)),
     "one frame": ((1, 14 * 599), ("cluster", 2, 1, 1049, 256, 2)),
     "one frame, nr100": ((1, 14 * 3275), ("cluster", 8, 1, 1433, 256, 8)),
     "one element": ((1, 1), ("block", 1, 1, 1, 32, 1)),

@@ -142,8 +142,9 @@ def test_wrapper_raises_on_what_it_does_not_take():
 
 
 #: (B, S, R, K) of the benchmark's cells: bench_4x4, nr100_4x64,
-#: lte_frame_etu300_4x4, factory_2x2
-BENCH_SHAPES = ((256, 14, 4, 599), (64, 14, 64, 3275), (512, 140, 4, 599), (2048, 14, 2, 599))
+#: lte_frame_etu300_4x4, factory_2x2, nr_frame_hst500_4x4
+BENCH_SHAPES = ((256, 14, 4, 599), (64, 14, 64, 3275), (512, 140, 4, 599), (2048, 14, 2, 599),
+                (128, 280, 4, 611))
 
 
 @pytest.mark.parametrize("shape", BENCH_SHAPES)
@@ -155,6 +156,7 @@ def test_plan_fits_the_kernel(shape):
         (64, 14, 64, 3275): ("split", 5, 13, 1, 28, 416),
         (512, 140, 4, 599): ("whole", 1, 4, 4, 7, 96),
         (2048, 14, 2, 599): ("whole", 1, 2, 2, 7, 96),
+        (128, 280, 4, 611): ("whole", 1, 4, 4, 7, 96),
     }[shape]
     assert (pl.route, pl.groups, pl.rows, pl.round_rows, pl.strides, pl.chunk) == want
     assert pl.round_rows * MAX_PATHS * pl.strides <= pg.THREADS

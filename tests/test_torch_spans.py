@@ -18,7 +18,7 @@ import torch
 
 from ce5g_torch import ExperimentConfig, MIMOConfig, OFDMConfig
 from ce5g_torch.estimators import estimate_batch
-from ce5g_torch.estimators.time_prior import auto_time_rank
+from ce5g_torch.estimators.time_prior import auto_time_rank, legendre_qr
 from ce5g_torch.ops import _build
 from ce5g_torch.ops import channel as channel_mod
 from ce5g_torch.ops import hpd_solve as hpd_mod
@@ -516,10 +516,16 @@ def test_timed_entry_launches_the_pilot_kernel_once(estimator, method):
 
 def test_time_rank_counts_each_run():
     cfg = _cfg()
+    auto_time_rank(cfg)  # the search's Legendre QRs built once, then cached
     assert _moved(lambda: auto_time_rank(cfg)) == {"time_rank.computed": 1}
     moved = _moved(lambda: _step(cfg, "mmse_full", "linear"))
     assert moved["time_rank.computed"] == 1 and moved["ops.hpd_solve.plain"] == 2
     assert "time_rank.computed" not in _moved(lambda: _step(cfg, "ls", "linear"))
+
+
+def test_legendre_built_counts_each_miss():
+    assert _moved(lambda: legendre_qr(997, 3)) == {"time_prior.legendre_built": 1}
+    assert _moved(lambda: legendre_qr(997, 3)) == {}
 
 
 def test_tables_built_counts_each_miss():
